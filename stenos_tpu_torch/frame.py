@@ -1,0 +1,352 @@
+"""Frame layer: superblock orchestration and method selection (SPEC.md §1, §4).
+
+Behavioral equivalent of stenos.cpp:403-1017 / 1052-1208, ported from
+stenos_tpu/frame.py (non-time-limited path). The per-superblock block codec
+is delegated to an engine: None is the numpy host path (codec/encode_np.py,
+native block decode), the parity oracle; a TorchEngine runs it through the
+encode and decode kernels. zstd, the LZ4 estimators and the LZ patch-up stay
+host code.
+"""
+
+import numpy as np
+
+from .codec.encode_np import block_codec_encode
+from .constants import (
+    ERROR_DST_OVERFLOW,
+    ERROR_INVALID_BYTESOFTYPE,
+    ERROR_INVALID_INPUT,
+    ERROR_SRC_OVERFLOW,
+    MAX_BLOCK_BYTES,
+    MAX_BYTESOFTYPE,
+    METHOD_BLOCK,
+    METHOD_BLOCK_ZSTD,
+    METHOD_COPY,
+    METHOD_TRANSPOSED_DELTA_ZSTD,
+    METHOD_TRANSPOSED_ZSTD,
+    METHOD_ZSTD,
+    NO_BLOCK_SHIFT,
+    compress_bound,
+    super_block_size,
+)
+from .host import zstd as zstd_host
+from .host.lz4dry import lz4_guess_ratio, lz4_guess_size
+from .ops.delta import delta_inv_np, delta_np
+from .ops.shuffle import shuffle_np, unshuffle_np
+
+
+class StenosError(Exception):
+    def __init__(self, code):
+        self.code = code
+        super().__init__(f"stenos error {code}")
+
+
+def _superblock_params(bpp, nbytes, level, custom_shift=None):
+    """Superblock size + frame shift byte (stenos.cpp:115-169)."""
+    block_size = bpp * 256
+    if custom_shift is not None and custom_shift != NO_BLOCK_SHIFT:
+        sb = block_size << custom_shift
+        shift = 255
+    else:
+        sb = super_block_size(block_size)
+        shift = 0
+        if nbytes > sb:
+            shift = (level - 1) // 2 if level else 0
+            sb <<= shift
+    if sb < block_size or sb >= MAX_BLOCK_BYTES:
+        raise StenosError(-9)  # ERROR_INVALID_PARAMETER
+    return sb, shift
+
+
+def _guess_transposed_lz_ratio(shuffled, bpp, nbytes, glevel, use_delta):
+    """stenos.cpp:376-401 — windowed per-plane LZ4 estimate."""
+    elements = nbytes // bpp
+    stepsize = elements // (16 // (glevel - 1))
+    if stepsize < 64:
+        stepsize = elements
+    csize = 0
+    processed = 0
+    for p in range(bpp):
+        start = p * elements + (elements - stepsize) // 2
+        window = shuffled[start : start + stepsize]
+        if use_delta:
+            window = delta_np(window)
+        csize += lz4_guess_size(window.tobytes(), 10 - glevel)
+        processed += stepsize
+    return (processed / csize) * (1.0 + glevel * 0.02)
+
+
+def compress_superblock(chunk: np.ndarray, bpp: int, level: int,
+                        dst_size: int, engine=None, precomputed=None,
+                        lz_table=None) -> bytes:
+    """Compress one superblock -> header(4B) + payload (or raise).
+
+    Mirrors compress_generic_superblock (stenos.cpp:403-679),
+    non-time-limited path.
+    """
+    sbytes = len(chunk)
+    if dst_size < 4:
+        raise StenosError(ERROR_DST_OVERFLOW)
+
+    def emit(method, payload):
+        if 4 + len(payload) > dst_size:
+            raise StenosError(ERROR_DST_OVERFLOW)
+        return bytes([method]) + len(payload).to_bytes(3, "little") + payload
+
+    def do_memcpy():
+        if dst_size < sbytes + 4:
+            raise StenosError(ERROR_DST_OVERFLOW)
+        return emit(METHOD_COPY, chunk.tobytes())
+
+    def do_zstd(src_bytes, method, zl):
+        r = zstd_host.compress(src_bytes, dst_size - 4, zl)
+        if isinstance(r, str) or len(r) > sbytes:
+            return do_memcpy()
+        return emit(method, r)
+
+    if sbytes == 0 or level == 0:
+        return do_memcpy()
+    if sbytes < 128:
+        return do_zstd(chunk.tobytes(), METHOD_ZSTD, 0)
+
+    # zstd level (stenos.cpp:439-461), SSE path semantics
+    zl = 0
+    if bpp > 1:
+        if level < 2:
+            # pure block path (goto BLOCK); the frame-scoped LZ table rides
+            # along (level-1 single-thread reference semantics)
+            r = _encode_blocks(chunk, bpp, dst_size - 4, None, engine,
+                               precomputed, lz_table=lz_table)
+            if isinstance(r, int) or len(r) > sbytes:
+                return do_memcpy()
+            return emit(METHOD_BLOCK, r)
+        zl = level - 1
+        if zl >= 4:
+            zl += 1
+    else:
+        zl = level
+
+    glevel = level
+    lz_ratio = 1.1
+    lz_transposed = 0.0
+    lz_transposed_delta = 0.0
+    if sbytes >= bpp * 256:
+        # NB: overwrites (not max) — stenos.cpp:469,492-495
+        lz_ratio = lz4_guess_ratio(chunk[: sbytes // 16].tobytes(),
+                                   10 - glevel)
+
+    shuffled = None
+    if bpp > 1:
+        shuffled = shuffle_np(chunk, bpp)
+        if sbytes >= bpp * 256 and level > 2:
+            lz_transposed = _guess_transposed_lz_ratio(
+                shuffled, bpp, sbytes, glevel, False)
+            lz_ratio = max(lz_ratio, lz_transposed)
+            lz_transposed_delta = _guess_transposed_lz_ratio(
+                shuffled, bpp, sbytes, glevel, True) * 1.1
+            lz_ratio = max(lz_ratio, lz_transposed_delta)
+            factor = 1.0 + level / 12.0
+            lz_transposed *= factor
+            lz_transposed_delta *= factor
+            lz_ratio *= factor
+    else:
+        lz_ratio *= 1.0 + level / 12.0
+
+    # block codec with target-ratio abort; budget = sbytes (stenos.cpp:546-547)
+    cblock = _encode_blocks(chunk, bpp, sbytes, lz_ratio, engine, precomputed)
+    if isinstance(cblock, int) or len(cblock) > sbytes:
+        if lz_ratio > 1.40:
+            if lz_ratio == lz_transposed:
+                return do_zstd(shuffled.tobytes(), METHOD_TRANSPOSED_ZSTD, zl)
+            if lz_ratio == lz_transposed_delta:
+                return do_zstd(delta_np(shuffled).tobytes(),
+                               METHOD_TRANSPOSED_DELTA_ZSTD, zl)
+        return do_zstd(chunk.tobytes(), METHOD_ZSTD, zl)
+
+    result = zstd_host.compress(cblock, dst_size - 4, zl)
+    if isinstance(result, str) or len(result) > len(cblock):
+        return emit(METHOD_BLOCK, cblock)
+    return emit(METHOD_BLOCK_ZSTD, result)
+
+
+def _encode_blocks(chunk, bpp, budget, target_ratio, engine, precomputed=None,
+                   block_level=2, lz_table=None):
+    if precomputed is not None and engine is not None:
+        return engine.finish_block_stream(precomputed, chunk, bpp, budget,
+                                          target_ratio, block_level,
+                                          lz_table=lz_table)
+    if engine is not None:
+        return engine.encode_block_stream(chunk, bpp, budget, target_ratio,
+                                          block_level, lz_table=lz_table)
+    return block_codec_encode(chunk, bpp, budget, block_level, target_ratio,
+                              lz_table=lz_table)
+
+
+def compress(data, bytesoftype: int, level: int = 1, dst_size=None,
+             engine=None, custom_shift=None) -> bytes:
+    """stenos_compress equivalent. data: bytes / 1D uint8 array.
+
+    engine: None = numpy host path; a TorchEngine = the device path."""
+    if isinstance(data, (bytes, bytearray, memoryview)):
+        data = np.frombuffer(bytes(data), dtype=np.uint8)
+    nbytes = len(data)
+    level = min(9, max(0, level))
+    if bytesoftype == 0 or bytesoftype >= MAX_BYTESOFTYPE:
+        raise StenosError(ERROR_INVALID_BYTESOFTYPE)
+    sb, shift = _superblock_params(bytesoftype, nbytes, level, custom_shift)
+    if dst_size is None:
+        if custom_shift is None or custom_shift == NO_BLOCK_SHIFT:
+            # exactly stenos_bound: method selection is capacity-sensitive
+            # at the margins, so parity requires the same default capacity
+            dst_size = compress_bound(nbytes)
+        else:
+            # compress_bound assumes >= 65792-byte superblocks; small custom
+            # blocksizes need the per-superblock overhead accounted exactly
+            dst_size = 12 + max(1, -(-nbytes // sb)) * 4 + nbytes
+    header = bytes([shift]) + nbytes.to_bytes(7, "little")
+    if shift == 255:
+        header += sb.to_bytes(4, "little")
+    if len(header) > dst_size:
+        raise StenosError(ERROR_DST_OVERFLOW)
+    if nbytes == 0:
+        return header
+
+    # Batched device pre-pass: the engine encodes every full superblock's
+    # block stream; the per-superblock loop then only does method selection.
+    pre = None
+    if engine is not None and level != 0:
+        pre = engine.encode_batch(data, bytesoftype, sb)
+
+    # Level-1 LZ hash table persists across the WHOLE frame: single-threaded
+    # the reference's stack slot survives between block_compress calls at
+    # level 1 (no estimator runs in between, stenos.cpp:449-450). At level
+    # >= 2 lz4_guess_ratio scribbles the slot before every superblock, so
+    # scope stays per superblock there (encode_full_blocks' fresh table).
+    lz_tab = None
+    if level == 1 and bytesoftype > 1:
+        from .codec.lz_np import fresh_table
+
+        lz_tab = fresh_table()
+
+    out = [header]
+    pos = len(header)
+    for i, off in enumerate(range(0, nbytes, sb)):
+        chunk = data[off : off + sb]
+        blob = compress_superblock(
+            chunk, bytesoftype, level, dst_size - pos, engine,
+            precomputed=None if pre is None else pre[i], lz_table=lz_tab)
+        out.append(blob)
+        pos += len(blob)
+    return b"".join(out)
+
+
+def get_info(frame, bytesoftype: int):
+    """stenos_get_info: (decompressed_size, superblock_size, header_len)."""
+    frame = bytes(frame[:12])
+    if len(frame) < 8:
+        raise StenosError(ERROR_SRC_OVERFLOW)
+    shift = frame[0]
+    if shift > 4 and shift != 255:
+        raise StenosError(ERROR_INVALID_INPUT)
+    dsize = int.from_bytes(frame[1:8], "little")
+    if shift == 255:
+        if len(frame) < 12:
+            raise StenosError(ERROR_SRC_OVERFLOW)
+        sb = int.from_bytes(frame[8:12], "little")
+        return dsize, sb, 12
+    return dsize, super_block_size(bytesoftype * 256) << shift, 8
+
+
+def _block_decode(payload, bpp, dsize, engine):
+    """Block-stream decode: the engine's decode kernel, or the native host
+    decoder on the host path."""
+    if engine is not None:
+        return engine.decode_block_stream(payload, bpp, dsize)
+    from .native import load
+
+    return load().block_decode(bytes(memoryview(np.asarray(payload))), bpp,
+                               dsize)
+
+
+def _zstd_decompress(payload, dsize):
+    r = zstd_host.decompress(payload, dsize)
+    if r is None:
+        raise StenosError(ERROR_INVALID_INPUT)
+    return np.frombuffer(r, np.uint8)
+
+
+def decompress_superblock(code, payload, bpp, dsize, engine=None):
+    """decompress_generic_superblock (stenos.cpp:681-753)."""
+    if code == METHOD_BLOCK:
+        r = _block_decode(payload, bpp, dsize, engine)
+        if isinstance(r, int):
+            raise StenosError(ERROR_INVALID_INPUT)
+        return r
+    if code == METHOD_ZSTD:
+        return _zstd_decompress(payload, dsize)
+    if code in (METHOD_TRANSPOSED_ZSTD, METHOD_TRANSPOSED_DELTA_ZSTD):
+        r = _zstd_decompress(payload, dsize)
+        if len(r) != dsize:
+            raise StenosError(ERROR_INVALID_INPUT)
+        if code == METHOD_TRANSPOSED_DELTA_ZSTD:
+            r = delta_inv_np(r)
+        return unshuffle_np(r, bpp)
+    if code == METHOD_BLOCK_ZSTD:
+        r = _zstd_decompress(payload, MAX_BLOCK_BYTES)
+        rr = _block_decode(r, bpp, dsize, engine)
+        if isinstance(rr, int):
+            raise StenosError(ERROR_INVALID_INPUT)
+        return rr
+    if code == METHOD_COPY:
+        if dsize != len(payload):
+            raise StenosError(ERROR_INVALID_INPUT)
+        return np.frombuffer(bytes(payload), np.uint8)
+    raise StenosError(ERROR_INVALID_INPUT)
+
+
+def decompress(frame, bytesoftype: int, dst_size=None, engine=None):
+    """stenos_decompress equivalent -> uint8 array.
+
+    engine: None = host path; a TorchEngine decodes whole all-BLOCK frames
+    through engine.decompress_frame_batched and every other frame per
+    superblock. Unlike the reference (stenos.cpp:1131 latent bug), inputs
+    whose size is an exact multiple of the superblock size decode correctly.
+    """
+    if bytesoftype == 0 or bytesoftype >= MAX_BYTESOFTYPE:
+        raise StenosError(ERROR_INVALID_BYTESOFTYPE)
+    frame = np.frombuffer(bytes(frame), np.uint8) if not isinstance(
+        frame, np.ndarray) else frame
+    if engine is not None:
+        from .engine import decompress_frame_batched
+
+        r = decompress_frame_batched(frame.tobytes(), bytesoftype, engine)
+        if r is not None:
+            if dst_size is not None and len(r) > dst_size:
+                raise StenosError(ERROR_DST_OVERFLOW)
+            return r
+    dsize_total, sb, hlen = get_info(frame.tobytes()[:12], bytesoftype)
+    if dst_size is not None and dsize_total > dst_size:
+        raise StenosError(ERROR_DST_OVERFLOW)
+    if dsize_total == 0:
+        return np.zeros(0, np.uint8)
+
+    n = len(frame)
+    pos = hlen
+    out = np.empty(dsize_total, np.uint8)
+    written = 0
+    while written < dsize_total:
+        if pos + 4 > n:
+            raise StenosError(ERROR_SRC_OVERFLOW)
+        code = int(frame[pos])
+        csize = int.from_bytes(frame[pos + 1 : pos + 4].tobytes(), "little")
+        pos += 4
+        dsize = min(sb, dsize_total - written)
+        if pos + csize > n:
+            raise StenosError(ERROR_INVALID_INPUT)
+        r = decompress_superblock(code, frame[pos : pos + csize], bytesoftype,
+                                  dsize, engine)
+        if len(r) != dsize:
+            raise StenosError(ERROR_INVALID_INPUT)
+        out[written : written + dsize] = r
+        written += dsize
+        pos += csize
+    return out

@@ -1,0 +1,121 @@
+"""Block-codec row decode of whole superblocks: the CUDA kernel and its plain
+torch version.
+
+decode_rows(vbufs, plane_off, rowtab, bpp, nb) is the wrapper: CUDA tensors
+go through csrc/decode_rows.cu (it replaces the TPU kernel
+stenos_tpu/ops/decode_pallas.py::make_decode_kernel, explicit row-record
+mode); CPU tensors go through decode_rows_plain, the torch twin of
+stenos_tpu/engine_jax.py::_decode_rows_body. Inputs are the native batched
+parser's output (native.parse_rows_batch):
+
+  vbufs     (n_sb, row_bytes) uint8  virtual streams (LZ/COPY inlined)
+  plane_off (n_sb, P) int32          plane start (low 24 bits)
+  rowtab    (n_sb, 16, P) int32      rel | hdr<<10 | min<<14 per row
+
+with P = nb*bpp in stream order (p = block*bpp + plane). Both return the
+decoded superblocks as (n_sb, nb*256*bpp) uint8 in natural byte order.
+"""
+
+import ctypes
+
+import torch
+
+from . import _cuda
+from .bitpack import unpack16_torch
+
+launches = 0  # decode_rows kernel launches (chip_smoke.py reads this)
+
+_P = ctypes.c_void_p
+_LL = ctypes.c_longlong
+_I = ctypes.c_int
+_SIGNATURES = {"stenos_decode_rows": [_P, _LL, _P, _P, _LL, _I, _I, _P, _P]}
+
+
+def decode_rows_plain(vbufs, plane_off, rowtab, bpp: int, nb: int):
+    """Plain torch version (see the module docstring)."""
+    n_sb, row_bytes = vbufs.shape
+    dev = vbufs.device
+    i32 = torch.int32
+    P = nb * bpp
+    rt = rowtab.to(i32).transpose(1, 2)  # (n_sb, P, 16)
+    h = ((rt >> 10) & 15).reshape(-1)
+    mins = ((rt >> 14) & 255).reshape(-1, 1)
+
+    # each row's 18-byte window; reads past the stream see zeros
+    start = (plane_off.to(torch.int64) & 0xFFFFFF)[..., None] + (rt & 1023)
+    idx = start[..., None] + torch.arange(18, device=dev)
+    idx = idx.clamp(max=row_bytes).reshape(n_sb, -1)
+    padded = torch.cat([vbufs, torch.zeros((n_sb, 1), dtype=torch.uint8,
+                                           device=dev)], 1)
+    W = torch.gather(padded, 1, idx).to(i32).reshape(-1, 18)  # (R, 18)
+
+    # RLE rows (6/7): mask bit set = repeat; literal k is byte 2 + k. Lane c
+    # holds the latest literal at or before c (fill-left), 0 before the first.
+    cpos = torch.arange(16, device=dev)
+    lit = (((W[:, 0] | (W[:, 1] << 8))[:, None] >> cpos) & 1) == 0
+    litc = torch.cumsum(lit.to(i32), -1)
+    rle_vals = torch.where(litc > 0,
+                           torch.gather(W, 1, (1 + litc).long().clamp(max=17)),
+                           0)
+    rle_bflag = (litc == 0).to(i32)
+
+    # bit-packed rows (1-5, 9-14); headers 0 and 8 carry no bits
+    bitpack = ((h >= 1) & (h <= 5)) | ((h >= 9) & (h <= 14))
+    bwidth = torch.where(bitpack, h % 8, 0)
+    vals = torch.zeros((W.shape[0], 16), dtype=i32, device=dev)
+    for b in range(1, 7):
+        sel = bwidth == b
+        vals[sel] = unpack16_torch(W[sel, : 2 * b], b)
+
+    h2 = h[:, None]
+    direct_a = (vals + mins) & 255
+    delta_a = torch.cumsum(vals + mins, -1) & 255
+    drle_a = torch.cumsum(rle_vals, -1) & 255
+    a = torch.where(h2 == 15, W[:, :16], direct_a)
+    a = torch.where((h2 >= 8) & (h2 <= 14), delta_a, a)
+    a = torch.where(h2 == 6, drle_a, a)
+    a = torch.where(h2 == 7, rle_vals, a)
+    bflag = torch.zeros_like(a)
+    bflag = torch.where((h2 >= 6) & (h2 <= 14) & (h2 != 7), 1, bflag)
+    bflag = torch.where(h2 == 7, rle_bflag, bflag)
+
+    # cross-row carry: out = a + bflag * previous row's last byte (mod 256)
+    a = a.to(i32).reshape(n_sb, P, 16, 16)
+    bflag = bflag.to(i32).reshape(n_sb, P, 16, 16)
+    prev = torch.zeros((n_sb, P), dtype=i32, device=dev)
+    rows = []
+    for r in range(16):
+        row = (a[:, :, r] + bflag[:, :, r] * prev[..., None]) & 255
+        rows.append(row)
+        prev = row[..., 15]
+    planes = torch.stack(rows, 2).reshape(n_sb, nb, bpp, 256)
+    return planes.transpose(2, 3).reshape(n_sb, nb * 256 * bpp).to(torch.uint8)
+
+
+def decode_rows(vbufs, plane_off, rowtab, bpp: int, nb: int):
+    """The wrapper: the CUDA kernel for CUDA tensors, the plain version for
+    CPU tensors (see the module docstring)."""
+    if vbufs.device.type == "cpu":
+        return decode_rows_plain(vbufs, plane_off, rowtab, bpp, nb)
+    if vbufs.device.type != "cuda":
+        raise ValueError(f"decode_rows: unsupported device {vbufs.device}")
+    n_sb, row_bytes = vbufs.shape
+    P = nb * bpp
+    for t, dt, shape in ((vbufs, torch.uint8, (n_sb, row_bytes)),
+                         (plane_off, torch.int32, (n_sb, P)),
+                         (rowtab, torch.int32, (n_sb, 16, P))):
+        if (t.device != vbufs.device or t.dtype != dt
+                or tuple(t.shape) != shape or not t.is_contiguous()):
+            raise ValueError("decode_rows: need contiguous vbufs (n_sb, L) "
+                             "uint8, plane_off (n_sb, P) and rowtab "
+                             f"(n_sb, 16, P) int32 on one device, P = {P}")
+    lib = _cuda.load("decode_rows", _SIGNATURES)
+    global launches
+    out = torch.empty((n_sb, nb * 256 * bpp), dtype=torch.uint8,
+                      device=vbufs.device)
+    stream = torch.cuda.current_stream(vbufs.device).cuda_stream
+    _cuda.check(lib.stenos_decode_rows(
+        vbufs.data_ptr(), row_bytes, plane_off.data_ptr(), rowtab.data_ptr(),
+        n_sb, nb, bpp, out.data_ptr(), stream), "decode_rows")
+    launches += 1
+    return out
