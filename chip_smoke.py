@@ -4,12 +4,16 @@
     python3 chip_smoke.py [--out chiprun_out/chip_smoke.json]
 
 Builds the encode_blocks and decode_rows kernels from stenos_tpu_torch/csrc
-(and the native host runtime), holds each kernel against its plain torch
-version on the card, checks 32 MiB frames byte for byte against the numpy
-host path, then drives the main path -- compress / decompress of 512 MiB of
-sorted int32 (bytesoftype 4) at levels 1 and 2 -- holds each kernel against
-its plain version again at the shapes that path gives it, times the kernels
-with CUDA events and prints the kernels' JSON line. Any failure
+(and the native host runtime), holds each kernel mode -- encode_blocks (K1),
+its index mode encode_blocks_index (K1b), decode_rows (K2) and its derive
+mode decode_rows_derive (K2b) -- against its plain torch version on the
+card, checks 32 MiB frames byte for byte against the numpy host path, then
+drives the main path -- compress / decompress of 512 MiB of sorted int32
+(bytesoftype 4) at levels 1 and 2 -- and the device-resident paths on the
+same 512 MiB: roundtrip_device, DeviceCompressedArray (build, reads,
+serialize, deserialize) and compress_frame_device. It holds each kernel
+against its plain version again at the shapes those paths give it, times the
+kernels with CUDA events and prints the kernels' JSON line. Any failure
 ends the run with a non-zero exit code. The last line is
 {"ok": true, "device": {...}}.
 """
@@ -30,8 +34,10 @@ import stenos_tpu_torch as stt
 from stenos_tpu_torch import frame as fr
 from stenos_tpu_torch import native
 from stenos_tpu_torch.host import zstd as zstd_host
-from stenos_tpu_torch.engine import CHUNK_BYTES
+from stenos_tpu_torch.engine import (CHUNK_BYTES, compress_frame_device,
+                                     frame_header_bytes, roundtrip_device)
 from stenos_tpu_torch.ops import _cuda, decode_kernel, encode_kernel
+from stenos_tpu_torch.ops.encode_kernel import record_bound
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 MIB = 1024 * 1024
@@ -94,9 +100,11 @@ def cuda_ms(fn, reps):
 
 def encode_err(k, p):
     """Max abs difference of the kernel's and the plain version's encode
-    outputs over each stream's first totals bytes; the sizes must agree."""
+    outputs over each stream's first totals bytes; the sizes (and the index
+    mode's plane_off) must agree."""
     for a, b in zip(k[1:], p[1:]):
-        check(torch.equal(a, b), "encode sizes differ from the plain version")
+        check(torch.equal(a, b), "encode sizes or plane_off differ from the "
+              "plain version")
     w = min(k[0].shape[1], p[0].shape[1])
     valid = torch.arange(w, device=k[1].device) < k[1][:, None]
     d = (k[0][:, :w].int() - p[0][:, :w].int()).abs()[valid]
@@ -106,6 +114,23 @@ def encode_err(k, p):
 def decode_err(k, p):
     check(k.shape == p.shape, "decode shape differs from the plain version")
     return int((k.int() - p.int()).abs().max())
+
+
+COUNTS = ((encode_kernel, "launches", "encode_blocks"),
+          (encode_kernel, "launches_index", "encode_blocks_index"),
+          (decode_kernel, "launches", "decode_rows"),
+          (decode_kernel, "launches_derive", "decode_rows_derive"))
+
+
+def reset_counts():
+    torch.cuda.synchronize()
+    for mod, attr, _ in COUNTS:
+        setattr(mod, attr, 0)
+
+
+def read_counts():
+    torch.cuda.synchronize()
+    return {name: getattr(mod, attr) for mod, attr, name in COUNTS}
 
 
 def block_streams(frame, bpp):
@@ -161,18 +186,41 @@ def phase_build():
 def phase_kernels(dev):
     """Each kernel against its plain version on the card, byte for byte."""
     rng = np.random.default_rng(2024)
-    err = {"encode_blocks": 0, "decode_rows": 0}
+    err = {name: 0 for _, _, name in COUNTS}
+
+    def record(name, e, what):
+        err[name] = max(err[name], e)
+        check(err[name] == 0, (name, *what))
+
     n = 0
     for bpp, n_sb, kind in itertools.product(
             (1, 2, 3, 4, 8, 16, 24, 300), (3, 1), KINDS):
         sb = fr.super_block_size(256 * bpp)
+        nb = sb // (256 * bpp)
         raw = gen_elements(rng, bpp, n_sb * sb // bpp, kind)
         x = torch.from_numpy(raw.copy()).to(dev).view(n_sb, sb)
         for level in (1, 2):
             k = encode_kernel.encode_superblocks(x, bpp, level)
             p = encode_kernel.encode_superblocks_plain(x, bpp, level)
-            err["encode_blocks"] = max(err["encode_blocks"], encode_err(k, p))
-            check(err["encode_blocks"] == 0, ("encode", bpp, kind, level))
+            record("encode_blocks", encode_err(k, p), (bpp, kind, level))
+            hdr = frame_header_bytes(n_sb * sb, sb, bpp, 1)
+            k = encode_kernel.encode_superblocks_frame(x, bpp, level, hdr)
+            p = encode_kernel.encode_superblocks_frame_plain(x, bpp, level,
+                                                             hdr)
+            check(int(k[1]) == int(p[1]), ("frame length", bpp, kind, level))
+            record("encode_blocks", decode_err(k[0], p[0]),
+                   (bpp, kind, level, "frame"))
+
+            k = encode_kernel.encode_superblocks_index(x, bpp, level)
+            p = encode_kernel.encode_superblocks_index_plain(x, bpp, level)
+            record("encode_blocks_index", encode_err(k, p),
+                   (bpp, kind, level))
+            out = decode_kernel.decode_rows_derive(k[0], k[4], bpp, nb, "jb")
+            record("decode_rows_derive", decode_err(
+                out, decode_kernel.decode_rows_derive_plain(
+                    k[0], k[4], bpp, nb, "jb")), (bpp, kind, level, "jb"))
+            check(torch.equal(out.view(n_sb, sb), x),
+                  ("derive jb round trip", bpp, kind, level))
 
             frame = fr.compress(raw, bpp, level, engine=None)
             sbs, streams = block_streams(frame, bpp)
@@ -180,15 +228,32 @@ def phase_kernels(dev):
                 continue
             vb, po, rt, _ = parsed_index(streams, bpp, sbs)
             args = [torch.from_numpy(a).to(dev) for a in (vb, po, rt)]
-            nb = sbs // (256 * bpp)
-            err["decode_rows"] = max(err["decode_rows"], decode_err(
-                decode_kernel.decode_rows(*args, bpp, nb),
-                decode_kernel.decode_rows_plain(*args, bpp, nb)))
-            check(err["decode_rows"] == 0, ("decode", bpp, kind, level))
+            nbs = sbs // (256 * bpp)
+            record("decode_rows", decode_err(
+                decode_kernel.decode_rows(*args, bpp, nbs),
+                decode_kernel.decode_rows_plain(*args, bpp, nbs)),
+                (bpp, kind, level))
+            out = decode_kernel.decode_rows_derive(args[0], args[1], bpp, nbs,
+                                                   "bj")
+            record("decode_rows_derive", decode_err(
+                out, decode_kernel.decode_rows_derive_plain(
+                    args[0], args[1], bpp, nbs, "bj")),
+                (bpp, kind, level, "bj"))
+            check(torch.equal(out, decode_kernel.decode_rows(*args, bpp, nbs)),
+                  ("derive bj == explicit records", bpp, kind, level))
+            # a corrupt index pointing near the row's end reads zeros there
+            bad = args[1].clone()
+            bad[:, -1] = (bad[:, -1] & ~0xFFFFFF) | (args[0].shape[1] - 3)
+            record("decode_rows_derive", decode_err(
+                decode_kernel.decode_rows_derive(args[0], bad, bpp, nbs, "bj"),
+                decode_kernel.decode_rows_derive_plain(args[0], bad, bpp, nbs,
+                                                       "bj")),
+                (bpp, kind, level, "corrupt index"))
             n += 1
     log(f"kernels == plain versions on the card: {n} cases over bpp "
-        "1,2,3,4,8,16,24,300 x 3 and 1 superblocks x 5 kinds x levels 1,2 "
-        "(max abs err 0)")
+        "1,2,3,4,8,16,24,300 x 3 and 1 superblocks x 5 kinds x levels 1,2; "
+        "encode_blocks as streams and as a frame, decode_rows_derive in 'jb' "
+        f"and 'bj' order (max abs err {err})")
     return err
 
 
@@ -210,9 +275,7 @@ def phase_headline(dev):
     raw = sorted_int32(HEADLINE_MB * MIB)
     res = {}
     for level in (1, 2):
-        encode_kernel.launches = 0
-        decode_kernel.launches = 0
-        torch.cuda.synchronize()
+        reset_counts()
         t0 = time.perf_counter()
         frame = stt.compress(raw, 4, level, device=dev)
         t1 = time.perf_counter()
@@ -227,11 +290,10 @@ def phase_headline(dev):
             "decompress_gbps": len(raw) / (t2 - t1) / 1e9,
             "compress_s": t1 - t0,
             "decompress_s": t2 - t1,
-            "launches": {"encode_blocks": encode_kernel.launches,
-                         "decode_rows": decode_kernel.launches},
+            "launches": read_counts(),
         }
         r = res[level]
-        check(all(r["launches"].values()),
+        check(r["launches"]["encode_blocks"] and r["launches"]["decode_rows"],
               f"level {level}: a kernel did not run: {r['launches']}")
         log(f"headline {HEADLINE_MB} MiB sorted int32 level {level}: ratio "
             f"{r['ratio']:.4f}, compress {r['compress_s']:.3f} s = "
@@ -304,6 +366,176 @@ def phase_timing(dev, raw, frame1, frame2):
     return out, err
 
 
+def in_chunks(fn, row_args, *rest, per=CHUNK_BYTES // (128 * 1024)):
+    """fn over slices of `per` rows of each of row_args, the outputs joined
+    by row: a plain version over a whole path's input, without the
+    intermediates of one call at that size."""
+    n = row_args[0].shape[0]
+    parts = [fn(*(a[i:i + per] for a in row_args), *rest)
+             for i in range(0, n, per)]
+    if isinstance(parts[0], tuple):
+        return tuple(torch.cat(p) for p in zip(*parts))
+    return torch.cat(parts)
+
+
+def phase_device(dev, raw, frame1):
+    """The device-resident paths on the headline data, each with the launch
+    counts set to 0 just before it and read just after: roundtrip_device,
+    DeviceCompressedArray and compress_frame_device. K1b and K2b are held
+    against their plain versions, and timed, on the inputs of the calls
+    these paths make: all 4096 slabs in one call ('jb' on K1b's records,
+    'bj' on the rows deserialize adopts from the level-1 headline frame);
+    the device frame against the plain version's records."""
+    sb = fr.super_block_size(1024)
+    n_sb = len(raw) // sb
+    nb = sb // 1024
+    x = torch.from_numpy(raw.copy()).to(dev).view(n_sb, sb)
+    res = {"launches": {}}
+    err = {}
+    times = {}
+
+    reset_counts()
+    out, rows, totals = roundtrip_device(x, 4, 2)
+    res["launches"]["roundtrip"] = read_counts()
+    check(torch.equal(out, x), "roundtrip_device output differs")
+    del out
+    ms = cuda_ms(lambda: roundtrip_device(x, 4, 2), 5)
+    res["roundtrip"] = {"ms": ms, "gbps": len(raw) / ms / 1e6,
+                        "ratio": len(raw) / int(totals.sum())}
+    log(f"roundtrip_device {HEADLINE_MB} MiB: out == input, steady "
+        f"{ms:.4f} ms = {res['roundtrip']['gbps']:.4f} GB/s; launches "
+        f"{res['launches']['roundtrip']}")
+
+    # K1b, then K2b 'jb', on the round trip's input and records
+    width = record_bound(nb, 4)
+    k = encode_kernel.encode_superblocks_index(x, 4, 2, width)
+    check(torch.equal(k[0], rows) and torch.equal(k[1], totals),
+          "K1b differs from the round trip's records")
+    del rows
+    plain = in_chunks(encode_kernel.encode_superblocks_index_plain, (x,), 4,
+                      2, width)
+    err["encode_blocks_index"] = encode_err(k, plain)
+    check(err["encode_blocks_index"] == 0, "K1b at the round trip's shape")
+    rec_bytes = int(totals.sum())
+    moved = (x.numel() + rec_bytes + k[4].numel() * 4
+             + 4 * (k[2].numel() + k[3].numel() + n_sb))
+    times["encode_blocks_index"] = {
+        "ms": cuda_ms(lambda: encode_kernel.encode_superblocks_index(
+            x, 4, 2, width), 3),
+        "plain_ms": cuda_ms(lambda: in_chunks(
+            encode_kernel.encode_superblocks_index_plain, (x,), 4, 2, width),
+            1),
+        "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bytes": moved}
+    dec = decode_kernel.decode_rows_derive(k[0], k[4], 4, nb, "jb")
+    err["decode_rows_derive"] = decode_err(dec, in_chunks(
+        decode_kernel.decode_rows_derive_plain, (k[0], k[4]), 4, nb, "jb"))
+    check(err["decode_rows_derive"] == 0, "K2b 'jb' at the round trip's "
+          "shape")
+    del dec
+    # the records the index points into, the index, the decoded bytes
+    moved = rec_bytes + k[4].numel() * 4 + x.numel()
+    times["decode_rows_derive"] = {
+        "ms": cuda_ms(lambda: decode_kernel.decode_rows_derive(
+            k[0], k[4], 4, nb, "jb"), 3),
+        "plain_ms": cuda_ms(lambda: in_chunks(
+            decode_kernel.decode_rows_derive_plain, (k[0], k[4]), 4, nb,
+            "jb"), 1),
+        "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bytes": moved}
+    del k
+
+    a = raw.view("<u4")
+    reset_counts()
+    t0 = time.perf_counter()
+    arr = stt.DeviceCompressedArray.from_array(a, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    res["launches"]["container_build"] = read_counts()
+    reset_counts()
+    t0 = time.perf_counter()
+    back = arr.to_array()
+    to_array_s = time.perf_counter() - t0
+    check(np.array_equal(back, a), "container to_array")
+    del back
+    rng = np.random.default_rng(5)
+    for i in rng.integers(0, arr.n_slabs, 100):
+        got = arr.slab(int(i)).cpu().numpy()
+        check(got.tobytes() == raw[i * arr.slab_bytes:
+                                   (i + 1) * arr.slab_bytes].tobytes(),
+              f"container slab {i}")
+    for i in rng.integers(0, len(a), 1000):
+        check(arr[int(i)] == a[i], f"container element {i}")
+    res["launches"]["container_reads"] = read_counts()
+    blob = arr.serialize()
+    check(np.array_equal(stt.decompress(blob, 4, device=dev), raw),
+          "container serialize")
+    reset_counts()
+    adopted = stt.DeviceCompressedArray.deserialize(frame1, "<u4", device=dev)
+    check(np.array_equal(adopted.to_array(), a), "container deserialize")
+    res["launches"]["container_deserialize"] = read_counts()
+    res["container"] = {"build_s": build_s, "to_array_s": to_array_s,
+                        "ratio": arr.current_compression_ratio(),
+                        "footprint": arr.memory_footprint(),
+                        "adopted_footprint": adopted.memory_footprint(),
+                        "serialized_bytes": len(blob)}
+    log(f"DeviceCompressedArray {HEADLINE_MB} MiB: build {build_s:.4f} s, "
+        f"ratio {arr.current_compression_ratio():.4f}, footprint "
+        f"{arr.memory_footprint()} B; to_array {to_array_s:.4f} s, 100 slab "
+        "and 1000 element reads, serialize -> decompress and deserialize of "
+        f"the level-1 headline frame == input; launches {res['launches']}")
+    # K2b 'bj' on the rows and index deserialize adopted, as to_array ran it
+    vb, pob = adopted._rows, adopted._plane_off
+    err["decode_rows_derive"] = max(err["decode_rows_derive"], decode_err(
+        decode_kernel.decode_rows_derive(vb, pob, 4, nb, "bj"),
+        in_chunks(decode_kernel.decode_rows_derive_plain, (vb, pob), 4, nb,
+                  "bj")))
+    check(err["decode_rows_derive"] == 0, "K2b 'bj' at deserialize's shape")
+    times["decode_rows_derive"].update(
+        bj_ms=cuda_ms(lambda: decode_kernel.decode_rows_derive(
+            vb, pob, 4, nb, "bj"), 3),
+        bj_bytes=int(adopted._totals.sum()) + pob.numel() * 4 + x.numel())
+    del arr, adopted, vb, pob
+
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    frame, length = compress_frame_device(x, 4, 1)
+    torch.cuda.synchronize()
+    fc_s = time.perf_counter() - t0
+    res["launches"]["frame_compress"] = read_counts()
+    got = frame[: int(length)].cpu().numpy().tobytes()
+    check(np.array_equal(stt.decompress(got, 4, device=dev), raw),
+          "compress_frame_device round trip")
+    check(got == frame1, "compress_frame_device differs from the level-1 "
+          "host-path frame")
+    # the frame layout of K1 against the plain version's records
+    hdr = fr.get_info(frame1, 4)[2]
+    keep = torch.arange(plain[0].shape[1], device=dev) < plain[1][:, None]
+    want = torch.cat([frame[:hdr], plain[0][keep]])
+    check(want.numel() == int(length) and not frame[int(length):].any(),
+          "device frame length or padding")
+    err["encode_blocks"] = int((frame[: int(length)].int()
+                                - want.int()).abs().max())
+    check(err["encode_blocks"] == 0, "device frame differs from the plain "
+          "version's records")
+    del frame, plain, keep, want
+    warm_ms = cuda_ms(lambda: compress_frame_device(x, 4, 1), 3)
+    res["frame_compress"] = {"s": fc_s, "gbps": len(raw) / fc_s / 1e9,
+                             "warm_ms": warm_ms,
+                             "warm_gbps": len(raw) / warm_ms / 1e6,
+                             "bytes": len(got)}
+    log(f"compress_frame_device {HEADLINE_MB} MiB level 1: first call "
+        f"{fc_s:.4f} s = {res['frame_compress']['gbps']:.4f} GB/s, warm "
+        f"{warm_ms:.4f} ms = {res['frame_compress']['warm_gbps']:.4f} GB/s; "
+        "frame == the host-path frame and the plain version's records, "
+        f"decodes to the input; launches {res['launches']['frame_compress']}")
+    for name, t in times.items():
+        log(f"{name} at {HEADLINE_MB} MiB (one call, {n_sb} slabs): "
+            + ", ".join(f"{k} {v:.4f}" if isinstance(v, float)
+                        else f"{k} {v}" for k, v in t.items()))
+    log(f"device-path kernels == plain versions at their paths' shapes: {err}")
+    return res, times, err
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="chiprun_out/chip_smoke.json")
@@ -322,29 +554,49 @@ def main():
     log(f"  [{time.perf_counter() - t0:.1f} s]")
     times, err = phase_timing(dev, raw, res[1]["frame"], res[2]["frame"])
     log(f"  [{time.perf_counter() - t0:.1f} s]")
+    dres, times_dev, err_dev = phase_device(dev, raw, res[1]["frame"])
+    log(f"  [{time.perf_counter() - t0:.1f} s]")
+    times.update(times_dev)
+    err["encode_blocks"] = max(err["encode_blocks"],
+                               err_dev.pop("encode_blocks"))
+    err.update(err_dev)
 
+    # (source, TPU kernel it replaces, launches on its own path, by path)
+    by_level = {f"level {lvl}": r["launches"] for lvl, r in res.items()}
+    dl = dres["launches"]
     replaces = {
         "encode_blocks": ("stenos_tpu_torch/csrc/encode_blocks.cu",
-                          "stenos_tpu/ops/encode_pallas.py:188"),
+                          "stenos_tpu/ops/encode_pallas.py:188",
+                          res[1]["launches"],
+                          {**by_level,
+                           "frame_compress": dl["frame_compress"]}),
+        "encode_blocks_index": ("stenos_tpu_torch/csrc/encode_blocks.cu",
+                                "stenos_tpu/ops/encode_pallas.py:389",
+                                dl["roundtrip"], dl),
         "decode_rows": ("stenos_tpu_torch/csrc/decode_rows.cu",
-                        "stenos_tpu/ops/decode_pallas.py:127"),
+                        "stenos_tpu/ops/decode_pallas.py:127",
+                        res[1]["launches"], by_level),
+        "decode_rows_derive": ("stenos_tpu_torch/csrc/decode_rows.cu",
+                               "stenos_tpu/ops/decode_pallas.py:133",
+                               dl["roundtrip"], dl),
     }
     kernels = [{
         "name": name, "route": "cuda", "source": src, "replaces": rep,
-        "launches": res[1]["launches"][name],
-        "launches_by_level": {lvl: r["launches"][name]
-                              for lvl, r in res.items()},
+        "launches": main_path[name],
+        "launches_by_path": {k: v[name] for k, v in paths.items()},
         "max_abs_err": max(err[name], err_small[name]),
         "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"],
         "bound_ms": times[name]["bound_ms"], "bound_by": "bytes",
         "library_ms": None,
-    } for name, (src, rep) in replaces.items()]
+    } for name, (src, rep, main_path, paths) in replaces.items()]
+    for k in kernels:
+        check(k["launches"] > 0, f"{k['name']} did not run on its path")
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
     record = {"card": card, "device": device, "headline_mb": HEADLINE_MB,
               "headline": {lvl: {k: v for k, v in r.items() if k != "frame"}
                            for lvl, r in res.items()},
-              "timing": times, "kernels": kernels}
+              "device_paths": dres, "timing": times, "kernels": kernels}
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(record, f, indent=1)

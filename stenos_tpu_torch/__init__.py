@@ -6,9 +6,15 @@ and byte-identical to the `stenos_tpu` package it is ported from.
 "cuda"; they raise when there is none). `device="cpu"` runs the same engine
 on the CPU through the kernels' plain torch versions; `engine=None` takes
 the numpy host path, the parity oracle.
+
+`DeviceCompressedArray` keeps an array compressed in device memory and
+decodes slabs on demand; `engine.roundtrip_device` and
+`engine.compress_frame_device` are the device-resident round trip and frame
+compress.
 """
 
 from .constants import compress_bound, super_block_size
+from .device_container import DeviceCompressedArray
 from .frame import StenosError, get_info
 from . import frame as _frame
 
@@ -59,6 +65,7 @@ def has_error(code) -> bool:
 __all__ = [
     "compress",
     "decompress",
+    "DeviceCompressedArray",
     "default_engine",
     "get_info",
     "has_error",

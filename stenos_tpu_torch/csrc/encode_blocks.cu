@@ -1,7 +1,9 @@
 // Block-codec encode for Hopper (sm_90a), bound through ctypes.
 //
 // Replaces the TPU kernel stenos_tpu/ops/encode_pallas.py::make_encode_kernel
-// (mode "words", with_index=False; entry encode_slabs_body). Same function as
+// in both its modes: with_index=False (K1, entry encode_slabs_body) and
+// with_index=True (K1b, entry encode_slabs_index_body), which also writes the
+// 4-byte record header and the decode index. Same function as
 // stenos_tpu/engine_jax.py::encode_superblocks_body: for every 256-element
 // block of a batch of superblocks, analyze each byte plane (16 rows of 16
 // bytes), pick row headers, plane codes (ALL_SAME, ALL_RAW, NORMAL,
@@ -18,7 +20,13 @@
 //                    exclusive scan of the plane sizes in shared memory, and
 //                    the copy of each plane slot to its place in the
 //                    superblock's stream. Block offsets come from a scan of
-//                    the block sizes on the host side of the wrapper.
+//                    the block sizes on the host side of the wrapper. With
+//                    record bases given, the first block of each superblock
+//                    also writes the 4-byte record header there: records go
+//                    to rows of a fixed width (index mode) or back to back
+//                    behind a frame header (device frame compress). In index
+//                    mode the same scan gives each plane's offset in the
+//                    record: the decode index costs one store a plane.
 //
 // Bound: bytes. The work per input byte is a few dozen integer operations;
 // the function must read the input once and write the compressed streams
@@ -220,11 +228,19 @@ encode_planes(const uint8_t* __restrict__ data, int bpp, int level,
     }
 }
 
+// Records (rec_base != nullptr): superblock s's record [1, csize u24,
+// stream] starts at out + rec_base[s], block_base already counts its 4 header
+// bytes, and totals holds each csize. Index mode (K1b, plane_off also set):
+// each plane's record-relative offset (block start + plane start) | code << 24
+// goes to plane_off in 'jb' order (p = plane * nb + block).
 __global__ void __launch_bounds__(kThreads)
 assemble_blocks(const uint8_t* __restrict__ slots,
                 const int* __restrict__ psizes, const int* __restrict__ codes,
                 const long long* __restrict__ block_base, int bpp,
-                uint8_t* __restrict__ out) {
+                uint8_t* __restrict__ out, int nb,
+                const int* __restrict__ totals,
+                const long long* __restrict__ rec_base,
+                int* __restrict__ plane_off) {
     __shared__ int s_scan[kThreads];
     __shared__ int s_start[kThreads];
 
@@ -234,7 +250,17 @@ assemble_blocks(const uint8_t* __restrict__ slots,
     const int* ps = psizes + blk * bpp;
     const int* cs = codes + blk * bpp;
     uint8_t* dst = out + block_base[blk];
-
+    const long long sb = blk / nb;
+    const int b = (int)(blk - sb * nb);
+    long long rel = 0;  // block start, record-relative
+    if (rec_base) {
+        rel = block_base[blk] - rec_base[sb];
+        if (b == 0 && t < 4) {
+            const int csize = totals[sb];
+            out[rec_base[sb] + t] =
+                (uint8_t)(t == 0 ? 1 : csize >> (8 * (t - 1)));
+        }
+    }
     for (int k = t; k < hdr_w; k += kThreads) {
         const int hi = 2 * k + 1 < bpp ? cs[2 * k + 1] : 0;
         dst[k] = (uint8_t)(cs[2 * k] | (hi << 4));
@@ -253,6 +279,9 @@ assemble_blocks(const uint8_t* __restrict__ slots,
         }
         s_start[t] = base + s_scan[t] - sz;
         __syncthreads();
+        if (plane_off && t < n)
+            plane_off[sb * nb * bpp + (long long)(g0 + t) * nb + b] =
+                (int)(rel + s_start[t]) | (cs[g0 + t] << 24);
         const int warp = t >> 5, lane = t & 31;
         for (int p = warp; p < n; p += kThreads / 32) {
             const int len = ps[g0 + p];
@@ -280,13 +309,19 @@ extern "C" int stenos_encode_planes(const void* data, long long n_blocks,
     return (int)cudaGetLastError();
 }
 
+// totals, rec_base and plane_off are null for K1's streams; totals and
+// rec_base are set for records (index rows or a frame), plane_off for K1b's
+// decode index; see assemble_blocks.
 extern "C" int stenos_assemble_blocks(const void* slots, const void* psizes,
                                       const void* codes, const void* block_base,
                                       long long n_blocks, int bpp, void* out,
+                                      int nb, const void* totals,
+                                      const void* rec_base, void* plane_off,
                                       void* stream) {
     assemble_blocks<<<(unsigned)n_blocks, kThreads, 0, (cudaStream_t)stream>>>(
         (const uint8_t*)slots, (const int*)psizes, (const int*)codes,
-        (const long long*)block_base, bpp, (uint8_t*)out);
+        (const long long*)block_base, bpp, (uint8_t*)out, nb,
+        (const int*)totals, (const long long*)rec_base, (int*)plane_off);
     return (int)cudaGetLastError();
 }
 #endif

@@ -13,7 +13,15 @@ engine supplies the block streams and decodes them:
           frames that are not all method BLOCK decode per superblock through
           decode_block_stream, which launches the same kernel.
 
-Counterpart of stenos_tpu/engine_jax.py (JaxEngine, decompress_frame_batched).
+and two device-resident paths with no host byte traffic:
+
+  roundtrip_device       encode_superblocks_index (records + decode index)
+                         -> decode_rows_derive on the records themselves.
+  compress_frame_device  encode_superblocks_frame: the same kernel writes
+                         the records behind the frame header, in one buffer.
+
+Counterpart of stenos_tpu/engine_jax.py (JaxEngine, decompress_frame_batched,
+roundtrip_device, compress_frame_device_jit).
 A device that is asked for and missing, a kernel that does not build or
 launch, and a native runtime that does not build all raise: nothing here
 falls back to a slower tier.
@@ -26,8 +34,9 @@ from .codec.encode_np import encode_partial
 from .codec.lz_np import fresh_table, lz_compress_block
 from .constants import (BLOCK_LZ, BLOCK_PARTIAL, ERROR_DST_OVERFLOW,
                         ERROR_INVALID_INPUT)
-from .ops.decode_kernel import decode_rows
-from .ops.encode_kernel import encode_superblocks
+from .ops.decode_kernel import decode_rows, decode_rows_derive
+from .ops.encode_kernel import (encode_superblocks, encode_superblocks_frame,
+                                encode_superblocks_index, record_bound)
 
 CHUNK_BYTES = 64 * 1024 * 1024  # superblocks per device call, in bytes
 
@@ -255,3 +264,52 @@ def decompress_frame_batched(frame: bytes, bpp: int, engine: TorchEngine):
         out[c0 * sb : c1 * sb] = engine._decode(
             vbufs, plane_off, rowtab, bpp, nb).reshape(-1)
     return out
+
+
+def roundtrip_device(batch, bpp: int, block_level: int = 2):
+    """Device-resident compress -> decompress of a (n_sb, sbytes) uint8
+    tensor, on its device, with no host byte traffic and no device-to-host
+    copy: the index-mode encode emits the frame records and the decode index
+    into rows of record_bound(nb, bpp) bytes, and the derive-mode decode
+    reads the records directly (no row table, no host parse), only the bytes
+    the index points at.
+
+    Returns (out (n_sb, sbytes) uint8, rows (n_sb, record_bound) uint8,
+    totals (n_sb,) int32): rows[i, :totals[i]] is a standard frame record,
+    zeros follow."""
+    n_sb, sbytes = batch.shape
+    nb = sbytes // (256 * bpp)
+    rows, totals, _, _, plane_off = encode_superblocks_index(
+        batch, bpp, block_level, record_bound(nb, bpp))
+    return decode_rows_derive(rows, plane_off, bpp, nb, "jb"), rows, totals
+
+
+def frame_header_bytes(nbytes: int, sb: int, bpp: int, level: int) -> bytes:
+    """Frame header of a device-assembled frame: the standard shift byte when
+    sb is the level's superblock size, else the custom-blocksize form (shift
+    255 + LE32 sb, stenos.cpp:868-874)."""
+    from .frame import StenosError, _superblock_params
+
+    try:
+        std_sb, shift = _superblock_params(bpp, nbytes, level)
+    except StenosError:  # no standard superblock for this size: custom form
+        std_sb, shift = -1, 0
+    if sb == std_sb:
+        return bytes([shift]) + nbytes.to_bytes(7, "little")
+    return (bytes([255]) + nbytes.to_bytes(7, "little")
+            + sb.to_bytes(4, "little"))
+
+
+def compress_frame_device(data, bpp: int, level: int):
+    """Device-resident frame compression (every superblock method BLOCK) of a
+    (n_sb, sb) uint8 tensor, on its device: the encode at block level 2 (as
+    the JAX package's device path) writes each record straight to its place
+    behind the frame header. No LZ patch-up and no fallback to COPY: the
+    frame equals stenos_tpu's compress_frame_device_jit, and decodes with
+    decompress.
+
+    Returns (frame (capacity,) uint8, length): the frame is frame[:length];
+    length is a 0-d int64 tensor on the device (no device-to-host copy)."""
+    n_sb, sb = data.shape
+    return encode_superblocks_frame(
+        data, bpp, 2, frame_header_bytes(n_sb * sb, sb, bpp, level))

@@ -14,6 +14,14 @@ parser's output (native.parse_rows_batch):
 
 with P = nb*bpp in stream order (p = block*bpp + plane). Both return the
 decoded superblocks as (n_sb, nb*256*bpp) uint8 in natural byte order.
+
+decode_rows_derive(vbufs, plane_off, bpp, nb, plane_order) is the derive
+mode of the same kernel (it replaces make_decode_kernel with derive=True):
+plane_off carries off | code << 24 and no rowtab exists; the records come
+from the stream's own header bytes. plane_order is 'jb' (p = plane*nb +
+block, encode_kernel.encode_superblocks_index's index) or 'bj' (the parser's
+order). Its plain version is decode_rows_derive_plain, which derives a
+rowtab (derive_rowtab_plain) and calls decode_rows_plain.
 """
 
 import ctypes
@@ -23,12 +31,19 @@ import torch
 from . import _cuda
 from .bitpack import unpack16_torch
 
-launches = 0  # decode_rows kernel launches (chip_smoke.py reads this)
+# kernel launches (chip_smoke.py reads these): explicit records (K2) and
+# derive mode (K2b), counted apart
+launches = 0
+launches_derive = 0
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _I = ctypes.c_int
-_SIGNATURES = {"stenos_decode_rows": [_P, _LL, _P, _P, _LL, _I, _I, _P, _P]}
+_SIGNATURES = {
+    "stenos_decode_rows": [_P, _LL, _P, _P, _LL, _I, _I, _P, _P],
+    "stenos_decode_rows_derive": [_P, _LL, _P, _LL, _I, _I, _I, _P, _P],
+}
+_WIN = 320  # plane window of the derivation: offset-chain reads end < 298
 
 
 def decode_rows_plain(vbufs, plane_off, rowtab, bpp: int, nb: int):
@@ -92,6 +107,72 @@ def decode_rows_plain(vbufs, plane_off, rowtab, bpp: int, nb: int):
     return planes.transpose(2, 3).reshape(n_sb, nb * 256 * bpp).to(torch.uint8)
 
 
+def _popcount16(m):
+    return ((m[..., None] >> torch.arange(16, device=m.device)) & 1).sum(-1)
+
+
+def derive_rowtab_plain(vbufs, plane_off, bpp: int, nb: int,
+                        plane_order: str):
+    """Row records from the stream's own bytes, in torch ops (the JAX
+    package's decode_pallas.derive_records). Returns (plane_off, rowtab) in
+    'bj' order, as decode_rows_plain takes them."""
+    n_sb, row_bytes = vbufs.shape
+    dev = vbufs.device
+    P = nb * bpp
+    po = plane_off.to(torch.int32)
+    if plane_order == "jb":
+        po = po.reshape(n_sb, bpp, nb).transpose(1, 2).reshape(n_sb, P)
+    elif plane_order != "bj":
+        raise ValueError(f"plane_order must be 'jb' or 'bj', not "
+                         f"{plane_order!r}")
+    code = ((po >> 24) & 3)[..., None]  # (n_sb, P, 1)
+    idx = ((po & 0xFFFFFF).long()[..., None]
+           + torch.arange(_WIN, device=dev)).clamp(max=row_bytes)
+    padded = torch.cat([vbufs, torch.zeros((n_sb, 1), dtype=torch.uint8,
+                                           device=dev)], 1)
+    w = torch.gather(padded, 1, idx.reshape(n_sb, -1)).reshape(
+        n_sb, P, _WIN).to(torch.int32)
+
+    def at(k):  # window bytes at per-row positions k (n_sb, P, m)
+        return torch.gather(w, 2, k.long())
+
+    hb = w[..., :8]
+    nib = torch.stack([hb & 15, hb >> 4], -1).reshape(n_sb, P, 16)
+    el = ((nib != 6) & (nib != 7) & (nib != 15)).to(torch.int32)
+    el_excl = torch.cumsum(el, -1) - el
+    mins_plain = torch.where(el == 1, at(8 + el_excl), 0)
+    r16 = torch.arange(16, device=dev)
+    lit = (((w[..., 8:9] | (w[..., 9:10] << 8)) >> r16) & 1) == 0
+    litc = torch.cumsum(lit.to(torch.int32), -1)  # literals at or before r
+    mins_rle = torch.where(litc > 0, at(9 + litc), 0)
+    mins = torch.where(code == 3, mins_rle, mins_plain)
+    minv = torch.where(code == 0, w[..., 0:1], torch.where(code == 1, 0, mins))
+    hdr = torch.where(code == 0, 0, torch.where(code == 1, 15, nib))
+
+    size = torch.where(nib == 15, 16,
+                       torch.where(nib >= 8, 2 * (nib - 8), 2 * nib))
+    is_rle = (nib == 6) | (nib == 7)
+    rel = torch.where(code == 3, 10 + litc[..., 15:16],
+                      8 + el.sum(-1, keepdim=True))
+    rels = []
+    for r in range(16):
+        rels.append(rel)
+        mask = at(rel) | (at(rel + 1) << 8)
+        rel = rel + torch.where(is_rle[..., r:r + 1], 18 - _popcount16(mask),
+                                size[..., r:r + 1])
+    rel = torch.where(code == 0, 1,
+                      torch.where(code == 1, 16 * r16, torch.cat(rels, -1)))
+    rowtab = (rel | (hdr << 10) | (minv << 14)).to(torch.int32)
+    return po, rowtab.transpose(1, 2).contiguous()
+
+
+def decode_rows_derive_plain(vbufs, plane_off, bpp: int, nb: int,
+                             plane_order: str):
+    """Plain torch version of the derive mode (see the module docstring)."""
+    po, rowtab = derive_rowtab_plain(vbufs, plane_off, bpp, nb, plane_order)
+    return decode_rows_plain(vbufs, po, rowtab, bpp, nb)
+
+
 def decode_rows(vbufs, plane_off, rowtab, bpp: int, nb: int):
     """The wrapper: the CUDA kernel for CUDA tensors, the plain version for
     CPU tensors (see the module docstring)."""
@@ -118,4 +199,40 @@ def decode_rows(vbufs, plane_off, rowtab, bpp: int, nb: int):
         vbufs.data_ptr(), row_bytes, plane_off.data_ptr(), rowtab.data_ptr(),
         n_sb, nb, bpp, out.data_ptr(), stream), "decode_rows")
     launches += 1
+    return out
+
+
+def decode_rows_derive(vbufs, plane_off, bpp: int, nb: int,
+                       plane_order: str):
+    """The derive-mode wrapper (K2b): the CUDA kernel for CUDA tensors, the
+    plain version for CPU tensors (see the module docstring). The kernel
+    reads only the bytes the index points at, within each row of vbufs."""
+    if plane_order not in ("jb", "bj"):
+        raise ValueError(f"plane_order must be 'jb' or 'bj', not "
+                         f"{plane_order!r}")
+    if vbufs.device.type == "cpu":
+        return decode_rows_derive_plain(vbufs, plane_off, bpp, nb,
+                                        plane_order)
+    if vbufs.device.type != "cuda":
+        raise ValueError(f"decode_rows_derive: unsupported device "
+                         f"{vbufs.device}")
+    n_sb, row_bytes = vbufs.shape
+    P = nb * bpp
+    for t, dt, shape in ((vbufs, torch.uint8, (n_sb, row_bytes)),
+                         (plane_off, torch.int32, (n_sb, P))):
+        if (t.device != vbufs.device or t.dtype != dt
+                or tuple(t.shape) != shape or not t.is_contiguous()):
+            raise ValueError("decode_rows_derive: need contiguous vbufs "
+                             "(n_sb, L) uint8 and plane_off (n_sb, P) int32 "
+                             f"on one device, P = {P}")
+    lib = _cuda.load("decode_rows", _SIGNATURES)
+    global launches_derive
+    out = torch.empty((n_sb, nb * 256 * bpp), dtype=torch.uint8,
+                      device=vbufs.device)
+    stream = torch.cuda.current_stream(vbufs.device).cuda_stream
+    _cuda.check(lib.stenos_decode_rows_derive(
+        vbufs.data_ptr(), row_bytes, plane_off.data_ptr(), n_sb, nb, bpp,
+        int(plane_order == "jb"), out.data_ptr(), stream),
+        "decode_rows_derive")
+    launches_derive += 1
     return out
