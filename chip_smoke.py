@@ -3,18 +3,21 @@
 
     python3 chip_smoke.py [--out chiprun_out/chip_smoke.json]
 
-Builds the encode_blocks and decode_rows kernels from stenos_tpu_torch/csrc
-(and the native host runtime), holds each kernel mode -- encode_blocks (K1),
-its index mode encode_blocks_index (K1b), decode_rows (K2) and its derive
-mode decode_rows_derive (K2b) -- against its plain torch version on the
-card, checks 32 MiB frames byte for byte against the numpy host path, then
-drives the main path -- compress / decompress of 512 MiB of sorted int32
-(bytesoftype 4) at levels 1 and 2 -- and the device-resident paths on the
-same 512 MiB: roundtrip_device, DeviceCompressedArray (build, reads,
-serialize, deserialize) and compress_frame_device. It holds each kernel
-against its plain version again at the shapes those paths give it, times the
-kernels with CUDA events and prints the kernels' JSON line. Any failure
-ends the run with a non-zero exit code. The last line is
+Builds the encode_blocks, decode_rows, huff_encode and huff_decode kernels
+from stenos_tpu_torch/csrc (and the native host runtime), holds each kernel
+-- encode_blocks (K1), its index mode encode_blocks_index (K1b), decode_rows
+(K2), its derive mode decode_rows_derive (K2b), huff_histogram (K3),
+huff_encode_streams (K4) and huff_decode_streams (K5) -- against its plain
+torch version on the card, checks 32 MiB frames byte for byte against the
+numpy host path, then drives the main path -- compress / decompress of 512
+MiB of sorted int32 (bytesoftype 4) at levels 1 and 2 -- and the
+device-resident paths on the same 512 MiB: roundtrip_device,
+DeviceCompressedArray (build, reads, serialize, deserialize) and
+compress_frame_device; then DeviceCompressedArray(entropy=True) on 512 MiB
+of a low-cardinality byte column and on the sorted int32. It holds each
+kernel against its plain version again at the shapes those paths give it,
+times the kernels with CUDA events and prints the kernels' JSON line. Any
+failure ends the run with a non-zero exit code. The last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -34,8 +37,13 @@ import stenos_tpu_torch as stt
 from stenos_tpu_torch import frame as fr
 from stenos_tpu_torch import native
 from stenos_tpu_torch.host import zstd as zstd_host
+from stenos_tpu_torch.device_container import record_blocks
 from stenos_tpu_torch.engine import (CHUNK_BYTES, compress_frame_device,
                                      frame_header_bytes, roundtrip_device)
+from stenos_tpu_torch.entropy import huff_decode_kernel, huff_kernel
+from stenos_tpu_torch.entropy.huff_decode_kernel import decode_tables
+from stenos_tpu_torch.entropy.huff_kernel import BLOCK, STREAM
+from stenos_tpu_torch.entropy.huffman import luts_batch
 from stenos_tpu_torch.ops import _cuda, decode_kernel, encode_kernel
 from stenos_tpu_torch.ops.encode_kernel import record_bound
 
@@ -65,6 +73,14 @@ def gen_elements(rng, bpp, nelem, kind):
     out = np.zeros((nelem, bpp), np.uint8)
     out[:, : min(bpp, 8)] = b8[:, : min(bpp, 8)]
     return out.reshape(-1)
+
+
+def low_card(rng, n):
+    """The low-cardinality column of tests/test_device_container.py: uint8
+    values 97..126 with p ~ 1/k."""
+    p = 1.0 / np.arange(1, 31)
+    return rng.choice(np.arange(97, 127, dtype=np.uint8), size=n,
+                      p=p / p.sum())
 
 
 def sorted_int32(nbytes, seed=42):
@@ -119,7 +135,11 @@ def decode_err(k, p):
 COUNTS = ((encode_kernel, "launches", "encode_blocks"),
           (encode_kernel, "launches_index", "encode_blocks_index"),
           (decode_kernel, "launches", "decode_rows"),
-          (decode_kernel, "launches_derive", "decode_rows_derive"))
+          (decode_kernel, "launches_derive", "decode_rows_derive"),
+          (huff_kernel, "launches_histogram", "huff_histogram"),
+          (huff_kernel, "launches_encode", "huff_encode_streams"),
+          (huff_decode_kernel, "launches", "huff_decode_streams"))
+SOURCES = ("encode_blocks", "decode_rows", "huff_encode", "huff_decode")
 
 
 def reset_counts():
@@ -172,10 +192,11 @@ def phase_build():
     t0 = time.perf_counter()
     with ThreadPoolExecutor(1) as ex:
         host = ex.submit(native.load)
-        _cuda.build(["encode_blocks", "decode_rows"])
+        _cuda.build(SOURCES)
         host.result()
-    log(f"build: {time.perf_counter() - t0:.1f} s (nvcc x2 + g++, in parallel)")
-    for name in ("encode_blocks", "decode_rows"):
+    log(f"build: {time.perf_counter() - t0:.1f} s (nvcc x{len(SOURCES)} + "
+        "g++, in parallel)")
+    for name in SOURCES:
         with open(os.path.join(_cuda.BUILD_DIR, f"{name}.ptxas.txt")) as f:
             for line in f:
                 if "registers" in line or "Compiling entry" in line:
@@ -253,8 +274,80 @@ def phase_kernels(dev):
     log(f"kernels == plain versions on the card: {n} cases over bpp "
         "1,2,3,4,8,16,24,300 x 3 and 1 superblocks x 5 kinds x levels 1,2; "
         "encode_blocks as streams and as a frame, decode_rows_derive in 'jb' "
-        f"and 'bj' order (max abs err {err})")
+        "and 'bj' order")
+    huff_grid(rng, dev, record)
+    log(f"max abs err on the card: {err}")
     return err
+
+
+def huff_streams(rng, kind, ns):
+    """ns Huffman streams of one kind of data."""
+    if kind == "normal":
+        a = rng.normal(128, 20, ns * STREAM).clip(0, 255)
+    elif kind == "two":
+        a = rng.choice([3, 250], ns * STREAM, p=[0.9, 0.1])
+    elif kind == "deep":  # counts halving over 21 symbols: 11-bit codes
+        reps = np.maximum((ns * 8192) >> np.arange(21), 1)
+        a = np.repeat(np.arange(21) * 7, reps)[: ns * STREAM]
+        a = rng.permutation(np.concatenate([a,
+                                            np.zeros(ns * STREAM - len(a))]))
+    elif kind == "one":
+        a = np.full(ns * STREAM, 42)
+    elif kind == "lowcard":
+        a = low_card(rng, ns * STREAM)
+    else:
+        a = rng.integers(0, 256, ns * STREAM)
+    return np.asarray(a, np.uint8).reshape(ns, STREAM)
+
+
+def huff_err(k, p):
+    """Max abs difference of two tuples of equal-shaped integer tensors."""
+    for a, b in zip(k, p):
+        check(a.shape == b.shape and a.dtype == b.dtype,
+              "Huffman kernel output's shape or type differs from the plain "
+              "version's")
+    return max(int((a.long() - b.long()).abs().max()) for a, b in zip(k, p))
+
+
+def huff_grid(rng, dev, record):
+    """K3, K4 and K5 against their plain versions: 6 kinds of data x 1 and
+    3 blocks; K5 on rows cut to the store's 512-byte bucket and on whole
+    rows, and on corrupt anchors (reads past the row)."""
+    n = 0
+    for kind, nblk in itertools.product(
+            ("normal", "two", "deep", "one", "lowcard", "uniform"), (1, 3)):
+        x = torch.from_numpy(huff_streams(rng, kind, 4 * nblk)).to(dev)
+        blocks = x.view(nblk, BLOCK)
+        hist = huff_kernel.histogram(blocks)
+        record("huff_histogram", huff_err(
+            (hist,), (huff_kernel.histogram_plain(blocks),)), (kind, nblk))
+        lens, luts = luts_batch(hist.cpu().numpy())
+        lut = torch.from_numpy(np.repeat(luts, 4, axis=0)).to(dev)
+        enc = huff_kernel.encode_streams(x, lut, with_anchors=True)
+        record("huff_encode_streams", huff_err(
+            enc, huff_kernel.encode_streams_plain(x, lut, with_anchors=True)),
+            (kind, nblk))
+        words, sizes, anchors = enc
+        tabs = torch.from_numpy(np.repeat(decode_tables(lens), 4,
+                                          axis=0)).to(dev)
+        wbucket = -(-int(sizes.max()) // 512) * 512
+        for w in (wbucket // 4, words.shape[1]):
+            rows = words[:, :w].contiguous().view(torch.uint8)
+            out = huff_decode_kernel.decode_streams(rows, anchors, tabs)
+            record("huff_decode_streams", huff_err(
+                (out,), (huff_decode_kernel.decode_streams_plain(
+                    rows, anchors, tabs),)), (kind, nblk, w))
+            check(torch.equal(out, x), ("Huffman round trip", kind, nblk, w))
+        bad = torch.randint(0, 400_000, anchors.shape, dtype=torch.int32,
+                            device=dev)
+        record("huff_decode_streams", huff_err(
+            (huff_decode_kernel.decode_streams(rows, bad, tabs),),
+            (huff_decode_kernel.decode_streams_plain(rows, bad, tabs),)),
+            (kind, nblk, "corrupt anchors"))
+        n += 1
+    log(f"Huffman kernels == plain versions on the card: {n} cases over 6 "
+        "kinds x 1 and 3 blocks; decode on bucket and whole rows and on "
+        "corrupt anchors; decode(encode(x)) == x")
 
 
 def phase_frames(dev):
@@ -536,6 +629,222 @@ def phase_device(dev, raw, frame1):
     return res, times, err
 
 
+def timed(fn):
+    """(fn(), its device time in ms by CUDA events): one run, for plain
+    versions whose run is also the one compared."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def low_card_device(dev, nbytes, seed=42):
+    """low_card's distribution drawn on the device (torch generator, seeded),
+    returned as a host array: 512 MiB of numpy draws would take the host
+    tens of seconds."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    p = 1.0 / np.arange(1, 31)
+    cdf = torch.from_numpy(np.cumsum(p / p.sum())).to(dev, torch.float32)
+    u = torch.rand(nbytes, generator=g, device=dev)
+    k = torch.searchsorted(cdf, u, right=True).clamp_(max=29)
+    return (k + 97).to(torch.uint8).cpu().numpy()
+
+
+def entropy_kernels(dev, src, e, err, times=None):
+    """K3, K4 and K5 against their plain versions on the full inputs of the
+    calls an entropy build and its to_array make: K3 and K4 on the record
+    blocks of src (the entropy=False container of the same array), every
+    output compared; K5 on the store e's coded rows (none when e is None,
+    the stage dropped). The store's rows must be the encode's rows of its
+    coded blocks, and K5 must give those blocks back. Maxima go into err;
+    with times given, each kernel is timed there too (torch.bincount as
+    K3's library yardstick) with the bytes its bound counts."""
+    blocks = record_blocks(src._rows, src._totals)
+    nblk = blocks.shape[0]
+    check(e is None or len(e.flags) == nblk, "record blocks")
+
+    def keep(name, e_):
+        err[name] = max(err.get(name, 0), e_)
+
+    hist = huff_kernel.histogram(blocks)
+    p, p_ms = timed(lambda: in_chunks(huff_kernel.histogram_plain, (blocks,)))
+    keep("huff_histogram", huff_err((hist,), (p,)))
+    if times is not None:
+        keys = (torch.arange(nblk, device=dev)[:, None] * 256
+                + blocks).view(-1)
+        times["huff_histogram"] = {
+            "ms": cuda_ms(lambda: huff_kernel.histogram(blocks), 10),
+            "plain_ms": p_ms,
+            "library_ms": cuda_ms(
+                lambda: torch.bincount(keys, minlength=nblk * 256), 10),
+            "bytes": blocks.numel() + hist.numel() * 4}
+        del keys
+    lens, luts = luts_batch(hist.cpu().numpy())
+    lut = torch.from_numpy(np.repeat(luts, 4, axis=0)).to(dev)
+    streams = blocks.view(-1, STREAM)
+    enc = huff_kernel.encode_streams(streams, lut, with_anchors=True)
+    p, p_ms = timed(lambda: in_chunks(huff_kernel.encode_streams_plain,
+                                      (streams, lut), True))
+    keep("huff_encode_streams", huff_err(enc, p))
+    del p
+    if times is not None:
+        # one LUT per block: its four streams share it
+        times["huff_encode_streams"] = {
+            "ms": cuda_ms(lambda: huff_kernel.encode_streams(
+                streams, lut, with_anchors=True), 10),
+            "plain_ms": p_ms,
+            "bytes": (streams.numel() + luts.nbytes + int(enc[1].sum())
+                      + enc[2].numel() * 4 + enc[1].numel() * 4)}
+    if e is None:
+        return
+    coded = np.flatnonzero(e.flags)
+    ridx = torch.from_numpy((coded[:, None] * 4 + np.arange(4)).reshape(-1)
+                            ).to(dev)
+    check(torch.equal(e.words, enc[0][ridx, : e.words.shape[1]])
+          and torch.equal(e.anchors, enc[2][ridx])
+          and np.array_equal(e.sizes, enc[1][ridx].cpu().numpy()),
+          "the store's rows differ from the encode of the record blocks")
+    del enc
+    wb = e.words.view(torch.uint8)
+    out = huff_decode_kernel.decode_streams(wb, e.anchors, e.tabs)
+    p, p_ms = timed(lambda: in_chunks(huff_decode_kernel.decode_streams_plain,
+                                      (wb, e.anchors, e.tabs)))
+    keep("huff_decode_streams", huff_err((out,), (p,)))
+    check(torch.equal(out.view(-1, BLOCK),
+                      blocks[torch.from_numpy(coded).to(dev)]),
+          "K5 of the store differs from the record blocks")
+    del p, out
+    if times is not None:
+        # one table per coded block: its four streams share it
+        times["huff_decode_streams"] = {
+            "ms": cuda_ms(lambda: huff_decode_kernel.decode_streams(
+                wb, e.anchors, e.tabs), 10),
+            "plain_ms": p_ms,
+            "bytes": (int(e.sizes.sum()) + e.anchors.numel() * 4
+                      + len(coded) * e.tabs.shape[1] * 4
+                      + wb.shape[0] * STREAM)}
+
+
+def phase_entropy(dev, raw):
+    """DeviceCompressedArray(entropy=True), each path with the launch counts
+    set to 0 just before it and read just after: HEADLINE_MB of the
+    low-cardinality column (bpp 1, slabs of 32 KiB), then the sorted int32
+    headline. On both, K3, K4 and K5 are held against their plain versions
+    on the full inputs of the calls the build and to_array make (the plain
+    versions in slices); on the low-cardinality column they are timed
+    there too."""
+    d = low_card_device(dev, HEADLINE_MB * MIB)
+    res = {"launches": {}}
+    reset_counts()
+    t0 = time.perf_counter()
+    arr = stt.DeviceCompressedArray.from_array(d, entropy=True, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    res["launches"]["build"] = read_counts()
+    e = arr._entropy
+    check(e is not None and arr._rows is None,
+          "the entropy stage dropped itself on the low-cardinality column")
+    plain = stt.DeviceCompressedArray.from_array(d, device=dev)
+    check(arr.memory_footprint() < plain.memory_footprint(),
+          "entropy footprint not below the row store's")
+    reset_counts()
+    t0 = time.perf_counter()
+    back = arr.to_array()
+    to_array_s = time.perf_counter() - t0
+    res["launches"]["to_array"] = read_counts()
+    check(np.array_equal(back, d), "entropy container to_array")
+    del back
+    rng = np.random.default_rng(5)
+    reset_counts()
+    t0 = time.perf_counter()
+    for i in rng.integers(0, arr.n_slabs, 100):
+        got = arr.slab(int(i)).cpu().numpy()
+        check(got.tobytes() == d[i * arr.slab_bytes:
+                                 (i + 1) * arr.slab_bytes].tobytes(),
+              f"entropy container slab {i}")
+    slab_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for i in rng.integers(0, len(d), 1000):
+        check(arr[int(i)] == d[i], f"entropy container element {i}")
+    element_s = time.perf_counter() - t0
+    res["launches"]["reads"] = read_counts()
+    reset_counts()
+    blob = arr.serialize()
+    res["launches"]["serialize"] = read_counts()
+    check(blob == plain.serialize(), "entropy serialize differs from the "
+          "entropy=False container's frame")
+    check(np.array_equal(stt.decompress(blob, 1, device=dev), d),
+          "entropy serialize -> decompress")
+    del blob
+    nblk = len(e.flags)
+    res["lowcard"] = {
+        "build_s": build_s, "to_array_s": to_array_s,
+        "slab_read_ms": slab_s * 10, "element_read_ms": element_s,
+        "footprint": arr.memory_footprint(),
+        "ratio": arr.current_compression_ratio(),
+        "plain_footprint": plain.memory_footprint(),
+        "plain_ratio": plain.current_compression_ratio(),
+        "bytes": len(d), "records_bytes": int(plain._totals.sum()),
+        "blocks": nblk, "coded_blocks": int(e.flags.sum()),
+        "wbucket": e.words.shape[1] * 4, "rb": e.rb}
+    r = res["lowcard"]
+    log(f"entropy container, {HEADLINE_MB} MiB low-cardinality uint8: "
+        f"{r['coded_blocks']} of {nblk} blocks coded, ratio {r['ratio']:.4f} "
+        f"(entropy=False {r['plain_ratio']:.4f}); build {build_s:.4f} s, "
+        f"to_array {to_array_s:.4f} s, slab read {r['slab_read_ms']:.4f} ms, "
+        f"element read {element_s:.4f} ms; reads and serialize == input; "
+        f"launches {res['launches']}")
+    err, times = {}, {}
+    entropy_kernels(dev, plain, e, err, times)
+    del arr, e, plain
+    for name, t in times.items():
+        t["bound_ms"] = t["bytes"] / HBM_BYTES_PER_S * 1e3
+        log(f"{name} at {HEADLINE_MB} MiB low-cardinality ({nblk} blocks): "
+            + ", ".join(f"{k} {v:.4f}" if isinstance(v, float)
+                        else f"{k} {v}" for k, v in t.items()))
+
+    # the sorted int32 headline: few of its 904 blocks code, but the stage
+    # has been kept in every full run (it drops the rows' padding); recorded,
+    # and its kernels held as above
+    a = raw.view("<u4")
+    reset_counts()
+    t0 = time.perf_counter()
+    arr = stt.DeviceCompressedArray.from_array(a, entropy=True, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    lc = res["launches"]["sorted_build"] = read_counts()
+    check(lc["huff_histogram"] and lc["huff_encode_streams"],
+          "K3/K4 did not run on the sorted headline")
+    e = arr._entropy
+    reset_counts()
+    t0 = time.perf_counter()
+    back = arr.to_array()
+    to_array_s = time.perf_counter() - t0
+    lt = res["launches"]["sorted_to_array"] = read_counts()
+    check(np.array_equal(back, a), "sorted entropy to_array")
+    del back
+    check(e is None or lt["huff_decode_streams"],
+          "K5 did not run on the sorted to_array")
+    res["sorted"] = {"kept": e is not None, "build_s": build_s,
+                     "to_array_s": to_array_s,
+                     "ratio": arr.current_compression_ratio(),
+                     "coded_blocks": 0 if e is None else int(e.flags.sum()),
+                     "blocks": None if e is None else len(e.flags)}
+    plain = stt.DeviceCompressedArray.from_array(a, device=dev)
+    entropy_kernels(dev, plain, e, err)
+    del arr, e, plain
+    log(f"entropy container, {HEADLINE_MB} MiB sorted int32: "
+        f"{res['sorted']}, to_array == input; launches {lc} (build), {lt} "
+        "(to_array)")
+    log(f"entropy kernels == plain versions at the paths' shapes: {err}")
+    check(not any(err.values()), f"entropy kernels differ: {err}")
+    return res, times, err
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="chiprun_out/chip_smoke.json")
@@ -560,6 +869,10 @@ def main():
     err["encode_blocks"] = max(err["encode_blocks"],
                                err_dev.pop("encode_blocks"))
     err.update(err_dev)
+    eres, times_ent, err_ent = phase_entropy(dev, raw)
+    log(f"  [{time.perf_counter() - t0:.1f} s]")
+    times.update(times_ent)
+    err.update(err_ent)
 
     # (source, TPU kernel it replaces, launches on its own path, by path)
     by_level = {f"level {lvl}": r["launches"] for lvl, r in res.items()}
@@ -579,6 +892,16 @@ def main():
         "decode_rows_derive": ("stenos_tpu_torch/csrc/decode_rows.cu",
                                "stenos_tpu/ops/decode_pallas.py:133",
                                dl["roundtrip"], dl),
+        "huff_histogram": ("stenos_tpu_torch/csrc/huff_encode.cu",
+                           "stenos_tpu/entropy/huff_pallas.py:228",
+                           eres["launches"]["build"], eres["launches"]),
+        "huff_encode_streams": ("stenos_tpu_torch/csrc/huff_encode.cu",
+                                "stenos_tpu/entropy/huff_pallas.py:90",
+                                eres["launches"]["build"], eres["launches"]),
+        "huff_decode_streams": ("stenos_tpu_torch/csrc/huff_decode.cu",
+                                "stenos_tpu/entropy/huff_decode_pallas.py:626",
+                                eres["launches"]["to_array"],
+                                eres["launches"]),
     }
     kernels = [{
         "name": name, "route": "cuda", "source": src, "replaces": rep,
@@ -587,7 +910,7 @@ def main():
         "max_abs_err": max(err[name], err_small[name]),
         "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"],
         "bound_ms": times[name]["bound_ms"], "bound_by": "bytes",
-        "library_ms": None,
+        "library_ms": times[name].get("library_ms"),
     } for name, (src, rep, main_path, paths) in replaces.items()]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} did not run on its path")
@@ -596,7 +919,8 @@ def main():
     record = {"card": card, "device": device, "headline_mb": HEADLINE_MB,
               "headline": {lvl: {k: v for k, v in r.items() if k != "frame"}
                            for lvl, r in res.items()},
-              "device_paths": dres, "timing": times, "kernels": kernels}
+              "device_paths": dres, "entropy": eres, "timing": times,
+              "kernels": kernels}
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(record, f, indent=1)

@@ -7,8 +7,8 @@ and byte-identical to the `stenos_tpu` package it is ported from.
 on the CPU through the kernels' plain torch versions; `engine=None` takes
 the numpy host path, the parity oracle.
 
-`DeviceCompressedArray` keeps an array compressed in device memory and
-decodes slabs on demand; `engine.roundtrip_device` and
+`DeviceCompressedArray` keeps an array compressed in device memory, with an
+optional Huffman entropy stage (entropy=True), and decodes slabs on demand; `engine.roundtrip_device` and
 `engine.compress_frame_device` are the device-resident round trip and frame
 compress.
 """

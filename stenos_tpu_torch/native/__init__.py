@@ -5,8 +5,9 @@ cache in stenos_tpu_torch/build/ (see _build.py). A failed build raises:
 the frame layer, the row parser feeding the decode kernel and the LZ
 estimators all need it, and there is no slower tier to hide behind.
 
-Only the entry points the block-codec path calls are bound: lz4_guess_size,
-parse_rows, parse_rows_batch and block_decode.
+Only the entry points the port's paths call are bound: lz4_guess_size,
+parse_rows, parse_rows_batch and block_decode (the block codec), and
+huff_lengths (the device container's entropy stage).
 """
 
 import ctypes
@@ -41,6 +42,8 @@ class _Native:
         cdll.stn_parse_rows_batch.restype = ctypes.c_ssize_t
         cdll.stn_parse_rows_batch.argtypes = [
             _P, _SZ, _SZ, _SZ, _SZ, _P, _P, _SZ, _P, _P, _P, _P, _P]
+        cdll.stn_huff_lengths.restype = None
+        cdll.stn_huff_lengths.argtypes = [_P, _SZ, ctypes.c_int32, _P]
 
     def lz4_guess_size(self, data, accel: int) -> int:
         data = bytes(data)
@@ -143,6 +146,16 @@ class _Native:
         if r < 0:
             return int(r)
         return dst
+
+
+    def huff_lengths(self, counts, max_bits: int = 11):
+        """counts (n, 256) int64 -> length-limited Huffman lengths (n, 256)
+        int32 (0 = unused symbol)."""
+        counts = np.ascontiguousarray(counts, np.int64)
+        out = np.zeros((counts.shape[0], 256), np.uint8)
+        self._lib.stn_huff_lengths(_ptr(counts), counts.shape[0], max_bits,
+                                   _ptr(out))
+        return out.astype(np.int32)
 
 
 _cached = None

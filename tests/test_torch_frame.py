@@ -84,7 +84,10 @@ def test_import_leaves_jax_out():
     # a fresh interpreter: this process already imported jax (conftest.py)
     code = ("import sys, stenos_tpu_torch, stenos_tpu_torch.engine, "
             "stenos_tpu_torch.frame, stenos_tpu_torch.native, "
-            "stenos_tpu_torch.device_container; "
+            "stenos_tpu_torch.device_container, "
+            "stenos_tpu_torch.entropy.huffman, "
+            "stenos_tpu_torch.entropy.huff_kernel, "
+            "stenos_tpu_torch.entropy.huff_decode_kernel; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'stenos_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")
