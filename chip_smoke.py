@@ -3,19 +3,24 @@
 
     python3 chip_smoke.py [--out chiprun_out/chip_smoke.json]
 
-Builds the encode_blocks, decode_rows, huff_encode and huff_decode kernels
-from stenos_tpu_torch/csrc (and the native host runtime), holds each kernel
--- encode_blocks (K1), its index mode encode_blocks_index (K1b), decode_rows
-(K2), its derive mode decode_rows_derive (K2b), huff_histogram (K3),
-huff_encode_streams (K4) and huff_decode_streams (K5) -- against its plain
-torch version on the card, checks 32 MiB frames byte for byte against the
+Builds the encode_blocks, decode_rows, huff_encode, huff_decode, fse_encode,
+seq_decode and seq_exec kernels from stenos_tpu_torch/csrc (and the native
+host runtime), holds each kernel -- encode_blocks (K1), its index mode
+encode_blocks_index (K1b), decode_rows (K2), its derive mode
+decode_rows_derive (K2b), huff_histogram (K3), huff_encode_streams (K4),
+huff_decode_streams (K5), fse_encode (K6), seq_decode (K7) and seq_exec (X1)
+-- against its plain torch version on the card, checks 32 MiB frames byte for byte against the
 numpy host path, then drives the main path -- compress / decompress of 512
 MiB of sorted int32 (bytesoftype 4) at levels 1 and 2 -- and the
 device-resident paths on the same 512 MiB: roundtrip_device,
 DeviceCompressedArray (build, reads, serialize, deserialize) and
 compress_frame_device; then DeviceCompressedArray(entropy=True) on 512 MiB
-of a low-cardinality byte column and on the sorted int32. It holds each
-kernel against its plain version again at the shapes those paths give it,
+of a low-cardinality byte column and on the sorted int32; then the device
+zstd entropy stage (phase_zstd): a grid of payloads and the 512 MiB text
+cell (code text, bpp 1, level 2) compressed through libzstd and through
+compress(entropy="device"), both decompressed on the card, and K6 on the
+cell's sequences. It holds each kernel against its plain version again at
+the shapes those paths give it,
 times the kernels with CUDA events and prints the kernels' JSON line. Any
 failure ends the run with a non-zero exit code. The last line is
 {"ok": true, "device": {...}}.
@@ -40,16 +45,23 @@ from stenos_tpu_torch.host import zstd as zstd_host
 from stenos_tpu_torch.device_container import record_blocks
 from stenos_tpu_torch.engine import (CHUNK_BYTES, compress_frame_device,
                                      frame_header_bytes, roundtrip_device)
-from stenos_tpu_torch.entropy import huff_decode_kernel, huff_kernel
+from stenos_tpu_torch.entropy import (device_decode, fse_kernel,
+                                      huff_decode_kernel, huff_kernel,
+                                      seq_exec, seqdec_kernel, zstd_frame)
 from stenos_tpu_torch.entropy.huff_decode_kernel import decode_tables
 from stenos_tpu_torch.entropy.huff_kernel import BLOCK, STREAM
 from stenos_tpu_torch.entropy.huffman import luts_batch
+from stenos_tpu_torch.entropy.match_device import match_candidates
+from stenos_tpu_torch.entropy.sequences import FRESH_REPS, encode_sequences
 from stenos_tpu_torch.ops import _cuda, decode_kernel, encode_kernel
 from stenos_tpu_torch.ops.encode_kernel import record_bound
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 MIB = 1024 * 1024
 HEADLINE_MB = 512  # bench.py's headline size
+TEXT_MB = 512  # the text cell: 4096 superblocks of 128 KiB
+TEXT_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "benchs",
+                         "data", "code_text.txt")
 KINDS = ("sorted", "random", "same", "rle", "smallrange")
 
 
@@ -138,8 +150,12 @@ COUNTS = ((encode_kernel, "launches", "encode_blocks"),
           (decode_kernel, "launches_derive", "decode_rows_derive"),
           (huff_kernel, "launches_histogram", "huff_histogram"),
           (huff_kernel, "launches_encode", "huff_encode_streams"),
-          (huff_decode_kernel, "launches", "huff_decode_streams"))
-SOURCES = ("encode_blocks", "decode_rows", "huff_encode", "huff_decode")
+          (huff_decode_kernel, "launches", "huff_decode_streams"),
+          (fse_kernel, "launches", "fse_encode"),
+          (seqdec_kernel, "launches", "seq_decode"),
+          (seq_exec, "launches", "seq_exec"))
+SOURCES = ("encode_blocks", "decode_rows", "huff_encode", "huff_decode",
+           "fse_encode", "seq_decode", "seq_exec")
 
 
 def reset_counts():
@@ -845,6 +861,389 @@ def phase_entropy(dev, raw):
     return res, times, err
 
 
+class Capture:
+    """Records (clones of) the arguments of the first `limit` calls that a
+    module (device_decode, zstd_frame) makes to one of its kernel wrappers,
+    and passes every call on: the calls stay the path's own and count as
+    its launches."""
+
+    def __init__(self, module, name, limit):
+        self.module, self.name, self.limit, self.calls = module, name, limit, []
+        self.real = getattr(module, name)
+
+    def __enter__(self):
+        def spy(*args, **kw):
+            if len(self.calls) < self.limit:
+                self.calls.append(([a.clone() if torch.is_tensor(a) else a
+                                    for a in args], dict(kw)))
+            return self.real(*args, **kw)
+
+        setattr(self.module, self.name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+
+def text_cell(nbytes):
+    """benchs/data/code_text.txt repeated to nbytes (a 620,858-byte
+    period)."""
+    with open(TEXT_PATH, "rb") as f:
+        text = np.frombuffer(f.read(), np.uint8)
+    return np.resize(text, nbytes)
+
+
+def methods(frame_bytes, bpp):
+    """Count of each superblock method in a frame."""
+    dsize, sb, pos = fr.get_info(frame_bytes, bpp)
+    out = {}
+    for _ in range(-(-dsize // sb)):
+        code = frame_bytes[pos]
+        out[code] = out.get(code, 0) + 1
+        pos += 4 + int.from_bytes(frame_bytes[pos + 1 : pos + 4], "little")
+    return out
+
+
+def zstd_exact(name, k, p):
+    """Max abs difference of tuples of integer tensors (equal shapes)."""
+    for a, b in zip(k, p):
+        check(a.shape == b.shape, f"{name}: shape differs from the plain "
+              "version's")
+    return max(int((a.long() - b.long().to(a.device)).abs().max())
+               if a.numel() else 0 for a, b in zip(k, p))
+
+
+def seq_decode_bytes(args, nseq):
+    """K7's bytes: streams, meta, tables in; ll, ml, ofv and err out."""
+    stream, meta, tabs = args
+    return (stream.numel() + meta.numel() * 8 + tabs.numel() * 4
+            + 12 * nseq + 4 * meta.shape[0])
+
+
+def seq_exec_bytes(args):
+    """X1's bytes: literals and sequences in, the blocks' output written."""
+    out, lits, ll, ml, off, blocks, lanes = args[:7]
+    return (lits.numel() + 12 * ll.numel() + blocks.numel() * 8
+            + lanes.numel() * 8 + int(blocks[:, 1].sum()))
+
+
+def merge_k7(calls):
+    """K7 inputs of several calls as one call: streams, meta (offsets
+    shifted) and tables concatenated; the outputs come in the calls'
+    order."""
+    streams, metas, tabs = [], [], []
+    soff = qoff = 0
+    for stream, meta, tab in calls:
+        m = meta.clone()
+        m[:, 0] += soff
+        m[:, 4] += qoff
+        soff += stream.numel()
+        qoff += int(meta[:, 3].sum())
+        streams.append(stream)
+        metas.append(m)
+        tabs.append(tab)
+    return torch.cat(streams), torch.cat(metas), torch.cat(tabs)
+
+
+def merge_x1(calls):
+    """X1 inputs of several (args, kwargs) calls as one call over the
+    outputs laid end to end: every lane of every call is a lane of the
+    merged call, so its output is the calls' outputs concatenated; staged
+    when every call was."""
+    parts = [[] for _ in range(7)]
+    o = lo = so = bo = 0
+    for out, lits, ll, ml, off, blocks, lanes in (a for a, _ in calls):
+        b = blocks.clone()
+        b[:, 0] += o
+        b[:, 2] += lo
+        b[:, 4] += so
+        for k, t in enumerate((out, lits, ll, ml, off, b, lanes + bo)):
+            parts[k].append(t)
+        o += out.numel()
+        lo += lits.numel()
+        so += ll.numel()
+        bo += blocks.shape[0]
+    return tuple(torch.cat(t) for t in parts) + (
+        all(kw.get("staged", False) for _, kw in calls),)
+
+
+def phase_zstd(dev):
+    """The device zstd entropy stage. (a) decode_payload_device on a grid of
+    2-3 block payloads: device frames of literals, 64-byte records, mixed
+    blocks and a partial tail, and a libzstd frame at stenos level 9 with
+    matches across blocks (the one-lane route). (b) The text cell, TEXT_MB
+    of code text at bpp 1, level 2: compress with libzstd then decompress
+    on the card, compress(entropy="device") then decompress on the card and
+    through host libzstd, each path with the launch counts set to 0 just
+    before it and read just after; no payload may go to the host ladder.
+    (c) K6 on the sequences of 64 of its blocks, held against
+    encode_sequences and decoded back through K7. (d) K6, K7 and X1 against
+    their plain versions on inputs from (a), from 4 superblocks of (b) and
+    from (c); times by CUDA events."""
+    res = {"launches": {}}
+    err = {"fse_encode": 0, "seq_decode": 0, "seq_exec": 0,
+           "huff_histogram": 0, "huff_encode_streams": 0,
+           "huff_decode_streams": 0}
+    times = {}
+    rng = np.random.default_rng(11)
+    text = text_cell(TEXT_MB * MIB)
+    ladder0 = device_decode.host_ladder
+
+    # (a) the tier grid
+    B = 131072
+    lit = rng.integers(0, 64, 3 * B).astype(np.uint8)
+    rec = np.tile(rng.integers(0, 256, 64).astype(np.uint8), 3 * B // 64)
+    piece = rng.integers(0, 256, 100_000).astype(np.uint8)
+    grid = {"literals": lit, "records": rec,
+            "mixed": np.concatenate([lit[:B], rec[:B], text[:B]]),
+            "tail": np.concatenate([lit[: 2 * B], text[:5000]])}
+    reset_counts()
+    with Capture(zstd_frame, "histogram", 8) as k3a, \
+            Capture(zstd_frame, "encode_streams", 8) as k4a:
+        payloads = {k: zstd_frame.encode_frame_device(v, dev)
+                    for k, v in grid.items()}
+    grid["libzstd9"] = np.concatenate([np.tile(piece, 3), text[:60_000]])
+    payloads["libzstd9"] = zstd_host.compress(grid["libzstd9"].tobytes(),
+                                              1 << 24, 9)
+    with Capture(device_decode, "decode_sections", 64) as k7a, \
+            Capture(device_decode, "execute", 64) as x1a, \
+            Capture(device_decode, "decode_streams", 64) as k5a:
+        for name, data in grid.items():
+            got = device_decode.decode_payload_device(payloads[name],
+                                                      len(data), dev)
+            check(got is not None and np.array_equal(got.cpu().numpy(),
+                                                      data),
+                  f"decode_payload_device of the {name} payload")
+    lg = res["launches"]["grid"] = read_counts()
+    check(device_decode.host_ladder == ladder0, "a grid payload went to the "
+          "host ladder")
+    check(all(lg[k] for k in ("huff_histogram", "huff_encode_streams",
+                              "huff_decode_streams", "seq_decode",
+                              "seq_exec")), f"the grid missed a kernel: {lg}")
+    check(any(not kw.get("staged", True) for _, kw in x1a.calls),
+          "the libzstd level-9 payload did not take the one-lane route")
+    log(f"zstd tier grid on the card ({', '.join(grid)}): "
+        "decode_payload_device == input, no payload on the host ladder; "
+        f"launches {lg}")
+    # a corrupt section (one sequence more than its stream holds): K7 sets
+    # error bit 2, as its plain version does; it joins the plain checks
+    stream, meta, tabs = k7a.calls[0][0]
+    bad = meta[:1].clone()
+    bad[0, 3] += 1
+    bad_args = [stream, bad, tabs[:1].contiguous()]
+    check(seqdec_kernel.decode_sections(*bad_args)[3].tolist() == [2],
+          "K7 did not flag a corrupt section")
+    k7a.calls.append((bad_args, {}))
+
+    # (b) the text cell
+    cell = {}
+    for route, kw in (("libzstd", {}), ("device", {"entropy": "device"})):
+        reset_counts()
+        t0 = time.perf_counter()
+        frame_b = stt.compress(text, 1, 2, device=dev, **kw)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        res["launches"][f"compress_{route}"] = read_counts()
+        m = methods(frame_b, 1)
+        check(m == {2: TEXT_MB * 8}, f"text cell {route}: superblock "
+              f"methods {m}, not all METHOD_ZSTD")
+        ladder = device_decode.host_ladder
+        k7 = Capture(device_decode, "decode_sections", 4)
+        x1 = Capture(device_decode, "execute", 4)
+        k5 = Capture(device_decode, "decode_streams", 4)
+        with k7, x1, k5:
+            reset_counts()
+            t2 = time.perf_counter()
+            back = stt.decompress(frame_b, 1, device=dev)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            lc = res["launches"][f"decompress_{route}"] = read_counts()
+        check(np.array_equal(back, text), f"text cell {route}: decompress "
+              "on the card differs from the input")
+        check(device_decode.host_ladder == ladder, f"text cell {route}: "
+              f"{device_decode.host_ladder - ladder} payloads went to the "
+              "host ladder")
+        check(lc["seq_decode"] and lc["seq_exec"]
+              and lc["huff_decode_streams"], f"text cell {route}: a kernel "
+              f"did not run: {lc}")
+        del back
+        cell[route] = {"bytes": len(frame_b), "ratio": len(text) / len(frame_b),
+                       "compress_s": t1 - t0, "decompress_s": t3 - t2,
+                       "compress_gbps": len(text) / (t1 - t0) / 1e9,
+                       "decompress_gbps": len(text) / (t3 - t2) / 1e9,
+                       "k7_calls": k7.calls, "x1_calls": x1.calls,
+                       "k5_calls": k5.calls}
+        if route == "device":
+            t0 = time.perf_counter()
+            host_back = stt.decompress(frame_b, 1, engine=None)
+            cell[route]["host_libzstd_decompress_s"] = time.perf_counter() - t0
+            check(np.array_equal(host_back, text), "text cell: the device "
+                  "frame does not decode through host libzstd")
+            del host_back
+        del frame_b
+        c = cell[route]
+        log(f"text cell {TEXT_MB} MiB code text, bpp 1, level 2, zstd stage "
+            f"{route}: ratio {c['ratio']:.4f}, compress {c['compress_s']:.3f} s"
+            f" = {c['compress_gbps']:.4f} GB/s, decompress on the card "
+            f"{c['decompress_s']:.3f} s = {c['decompress_gbps']:.4f} GB/s "
+            f"(== input, 0 payloads on the host ladder); launches "
+            f"compress {res['launches'][f'compress_{route}']}, decompress "
+            f"{lc}")
+    log(f"  device frame through host libzstd: "
+        f"{cell['device']['host_libzstd_decompress_s']:.3f} s, == input")
+
+    # (c) K6 on the sequences of 64 text blocks (device candidates, native
+    # parse), then decoded back through K7 and resolve_reps
+    nb = min(64, len(text) // B)
+    blocks = torch.from_numpy(text[: nb * B].reshape(nb, B).copy()).to(dev)
+    cand = match_candidates(blocks).cpu().numpy()
+    lib = native.load()
+    seqs = [lib.match_parse(text[i * B : (i + 1) * B], cand[i])[0]
+            for i in range(nb)]
+    reset_counts()
+    secs = fse_kernel.encode_sequences_device_batch(seqs, [FRESH_REPS] * nb,
+                                                    dev)
+    res["launches"]["fse_entry"] = read_counts()
+    check(res["launches"]["fse_entry"]["fse_encode"] == 1, "K6 did not run")
+    for i in range(nb):
+        check(secs[i] == encode_sequences(seqs[i], reps=FRESH_REPS),
+              f"K6 section {i} differs from encode_sequences")
+    preps = [seqdec_kernel.prep_section(sec, lib.zstd_ctx()) for sec in secs]
+    k7c = seqdec_kernel.pack_sections(preps, dev)
+    ll, ml, ofv, e = seqdec_kernel.decode_sections(*k7c)
+    check(not e.any(), "K7 flagged a K6 section")
+    ll, ml, ofv = (t.cpu().numpy() for t in (ll, ml, ofv))
+    s0 = 0
+    for i, p in enumerate(preps):
+        n = p["nseq"]
+        off = lib.resolve_reps(ll[s0 : s0 + n], ofv[s0 : s0 + n],
+                               np.array(FRESH_REPS, np.int64))
+        a = np.asarray(seqs[i])
+        check(np.array_equal(ll[s0 : s0 + n], a[:, 0])
+              and np.array_equal(ml[s0 : s0 + n], a[:, 2])
+              and np.array_equal(off, a[:, 1] - 3),
+              f"K6 section {i} does not decode back to its sequences")
+        s0 += n
+    nseq_c = s0
+    log(f"K6 on {nb} text blocks ({nseq_c} sequences): sections == "
+        "encode_sequences, K7 + resolve_reps give the sequences back")
+
+    # (d) plain versions, and times. K3 and K4 on the grid's literal-only
+    # blocks (encode_frame_device's calls), K5 on the grid's and on 4
+    # superblocks of each text-cell decode: each call again through the
+    # kernel, against its plain version on the same inputs
+    for args, kw in k3a.calls:
+        err["huff_histogram"] = max(err["huff_histogram"], huff_err(
+            (huff_kernel.histogram(*args, **kw),),
+            (huff_kernel.histogram_plain(*args, **kw),)))
+    for args, kw in k4a.calls:
+        err["huff_encode_streams"] = max(err["huff_encode_streams"], huff_err(
+            huff_kernel.encode_streams(*args, **kw),
+            huff_kernel.encode_streams_plain(*args, **kw)))
+    k5_calls = (k5a.calls + cell["libzstd"]["k5_calls"]
+                + cell["device"]["k5_calls"])
+    for args, kw in k5_calls:
+        err["huff_decode_streams"] = max(err["huff_decode_streams"], huff_err(
+            (huff_decode_kernel.decode_streams(*args, **kw),),
+            (huff_decode_kernel.decode_streams_plain(*args, **kw),)))
+    check(k3a.calls and k4a.calls and all(c["k5_calls"]
+                                          for c in cell.values()),
+          "no K3/K4 call on the grid or no K5 call on a text decode")
+    # K5 as the text cell's decode calls it: 4 rows of one superblock's
+    # literals, as wide as its longest stream
+    a5 = cell["libzstd"]["k5_calls"][0][0]
+    _, p5_ms = timed(lambda: huff_decode_kernel.decode_streams_plain(*a5))
+    k5t = res["k5_text_call"] = {
+        "ms": cuda_ms(lambda: huff_decode_kernel.decode_streams(*a5), 10),
+        "plain_ms": p5_ms, "rows": a5[0].shape[0], "width": a5[0].shape[1],
+        "bytes": (a5[0].numel() + a5[1].numel() * 4 + a5[2].numel()
+                  + a5[0].shape[0] * STREAM)}
+    k5t["bound_ms"] = k5t["bytes"] / HBM_BYTES_PER_S * 1e3
+    log(f"K3 ({len(k3a.calls)} calls), K4 ({len(k4a.calls)}) on the grid and "
+        f"K5 ({len(k5_calls)}) on the grid and the text decodes == plain "
+        f"versions; K5 one text call: {k5t}")
+    k6_args = fse_kernel.pack_blocks(
+        [fse_kernel.prep_block(sq, FRESH_REPS)[1] for sq in seqs], dev)
+    k6_out = fse_kernel.encode_bitstreams(*k6_args)
+    p, p_ms = timed(lambda: fse_kernel.encode_bitstreams_plain(*k6_args))
+    err["fse_encode"] = zstd_exact("K6", k6_out, p)
+    del p
+    times["fse_encode"] = {
+        "ms": cuda_ms(lambda: fse_kernel.encode_bitstreams(*k6_args), 5),
+        "plain_ms": p_ms,
+        "bytes": (sum(a.numel() * a.element_size() for a in k6_args)
+                  + int(k6_out[1].sum()) // 8 + 8 * nb),
+        "blocks": nb, "sequences": nseq_c}
+    # K7 and X1: each captured call again through the kernel, against the
+    # plain version over all of a set's calls merged into one (the plain
+    # versions step once a sequence or a round, whatever the lane count).
+    # The first set, 4 superblocks of the libzstd frame's decode, is timed:
+    # ms, plain_ms and bytes (so bound_ms) are those of the call the path
+    # makes, one superblock (its first); merged_* those of the 4 as one
+    sets = (("text cell, libzstd frame", cell["libzstd"]),
+            ("grid, text cell device frame, K6 sections",
+             {"k7_calls": k7a.calls + cell["device"]["k7_calls"]
+              + [(list(k7c), {})],
+              "x1_calls": x1a.calls + cell["device"]["x1_calls"]}))
+    for what, c in sets:
+        a7 = [a for a, _ in c["k7_calls"]]
+        got = [seqdec_kernel.decode_sections(*a) for a in a7]
+        got = tuple(torch.cat(t) for t in zip(*got))
+        merged = merge_k7(a7)
+        p, p_ms = timed(lambda: seqdec_kernel.decode_sections_plain(*merged))
+        err["seq_decode"] = max(err["seq_decode"], zstd_exact("K7", got, p))
+        a1 = c["x1_calls"]
+        got = torch.cat([seq_exec.execute(
+            *[a.clone() if torch.is_tensor(a) else a for a in args], **kw)
+            for args, kw in a1])
+        merged1 = merge_x1(a1)
+        p1, p1_ms = timed(lambda: seq_exec.execute_plain(*merged1))
+        err["seq_exec"] = max(err["seq_exec"], zstd_exact("X1", (got,),
+                                                          (p1,)))
+        del p, p1
+        log(f"K7 ({len(a7)} calls, {merged[1].shape[0]} sections) and X1 "
+            f"({len(a1)} calls) on {what}: max abs err vs the plain "
+            f"versions {err['seq_decode']}, {err['seq_exec']}")
+        if "seq_decode" in times:
+            continue
+        n7 = int(merged[1][:, 3].sum())
+        n70 = int(a7[0][1][:, 3].sum())
+        _, p_ms0 = timed(lambda: seqdec_kernel.decode_sections_plain(*a7[0]))
+        times["seq_decode"] = {
+            "ms": cuda_ms(lambda: seqdec_kernel.decode_sections(*a7[0]), 10),
+            "plain_ms": p_ms0, "bytes": seq_decode_bytes(a7[0], n70),
+            "sections": a7[0][1].shape[0], "sequences": n70,
+            "merged_ms": cuda_ms(lambda: seqdec_kernel.decode_sections(
+                *merged), 10),
+            "merged_plain_ms": p_ms,
+            "merged_bytes": seq_decode_bytes(merged, n7),
+            "merged_sections": merged[1].shape[0], "merged_sequences": n7}
+        args0, kw0 = a1[0]
+        _, p1_ms0 = timed(lambda: seq_exec.execute_plain(
+            *[a.clone() if torch.is_tensor(a) else a for a in args0],
+            **kw0))
+        times["seq_exec"] = {
+            "ms": cuda_ms(lambda: seq_exec.execute(*args0, **kw0), 10),
+            "plain_ms": p1_ms0, "bytes": seq_exec_bytes(args0),
+            "lanes": args0[6].shape[0], "sequences": args0[2].numel(),
+            "merged_ms": cuda_ms(lambda: seq_exec.execute(*merged1), 10),
+            "merged_plain_ms": p1_ms,
+            "merged_bytes": seq_exec_bytes(merged1),
+            "merged_lanes": merged1[6].shape[0],
+            "merged_sequences": merged1[2].numel(), "staged": merged1[7]}
+    check(not any(err.values()), f"zstd kernels differ: {err}")
+    for name, t in times.items():
+        t["bound_ms"] = t["bytes"] / HBM_BYTES_PER_S * 1e3
+        if "merged_bytes" in t:
+            t["merged_bound_ms"] = t["merged_bytes"] / HBM_BYTES_PER_S * 1e3
+        log(f"{name}: " + ", ".join(f"{k} {v:.4f}" if isinstance(v, float)
+                                    else f"{k} {v}" for k, v in t.items()))
+    for c in cell.values():
+        del c["k7_calls"], c["x1_calls"], c["k5_calls"]
+    res["text_cell"] = cell
+    return res, times, err
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="chiprun_out/chip_smoke.json")
@@ -873,10 +1272,17 @@ def main():
     log(f"  [{time.perf_counter() - t0:.1f} s]")
     times.update(times_ent)
     err.update(err_ent)
+    zres, times_z, err_z = phase_zstd(dev)
+    log(f"  [{time.perf_counter() - t0:.1f} s]")
+    times.update(times_z)
+    for name, e in err_z.items():
+        err[name] = max(err.get(name, 0), e)
 
     # (source, TPU kernel it replaces, launches on its own path, by path)
     by_level = {f"level {lvl}": r["launches"] for lvl, r in res.items()}
     dl = dres["launches"]
+    # K3, K4 and K5 also run on the zstd stage's paths
+    huff_paths = {**eres["launches"], **zres["launches"]}
     replaces = {
         "encode_blocks": ("stenos_tpu_torch/csrc/encode_blocks.cu",
                           "stenos_tpu/ops/encode_pallas.py:188",
@@ -894,14 +1300,24 @@ def main():
                                dl["roundtrip"], dl),
         "huff_histogram": ("stenos_tpu_torch/csrc/huff_encode.cu",
                            "stenos_tpu/entropy/huff_pallas.py:228",
-                           eres["launches"]["build"], eres["launches"]),
+                           eres["launches"]["build"], huff_paths),
         "huff_encode_streams": ("stenos_tpu_torch/csrc/huff_encode.cu",
                                 "stenos_tpu/entropy/huff_pallas.py:90",
-                                eres["launches"]["build"], eres["launches"]),
+                                eres["launches"]["build"], huff_paths),
         "huff_decode_streams": ("stenos_tpu_torch/csrc/huff_decode.cu",
                                 "stenos_tpu/entropy/huff_decode_pallas.py:626",
-                                eres["launches"]["to_array"],
-                                eres["launches"]),
+                                eres["launches"]["to_array"], huff_paths),
+        "fse_encode": ("stenos_tpu_torch/csrc/fse_encode.cu",
+                       "stenos_tpu/entropy/fse_pallas.py:76",
+                       zres["launches"]["fse_entry"], zres["launches"]),
+        "seq_decode": ("stenos_tpu_torch/csrc/seq_decode.cu",
+                       "stenos_tpu/entropy/seqdec_pallas.py:75",
+                       zres["launches"]["decompress_device"],
+                       zres["launches"]),
+        "seq_exec": ("stenos_tpu_torch/csrc/seq_exec.cu",
+                     "stenos_tpu/entropy/seq_exec.py:67",
+                     zres["launches"]["decompress_device"],
+                     zres["launches"]),
     }
     kernels = [{
         "name": name, "route": "cuda", "source": src, "replaces": rep,
@@ -919,7 +1335,8 @@ def main():
     record = {"card": card, "device": device, "headline_mb": HEADLINE_MB,
               "headline": {lvl: {k: v for k, v in r.items() if k != "frame"}
                            for lvl, r in res.items()},
-              "device_paths": dres, "entropy": eres, "timing": times,
+              "device_paths": dres, "entropy": eres, "zstd": zres,
+              "timing": times,
               "kernels": kernels}
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:

@@ -3,7 +3,9 @@ kernels for NVIDIA Hopper, format-compatible with the C++ `stenos` library
 and byte-identical to the `stenos_tpu` package it is ported from.
 
 `compress` / `decompress` run on the CUDA card by default (a TorchEngine on
-"cuda"; they raise when there is none). `device="cpu"` runs the same engine
+"cuda"; they raise when there is none). `compress(..., entropy="device")`
+runs the zstd stage's entropy coder on the card, and `decompress` decodes
+zstd payloads there, libzstd's included. `device="cpu"` runs the same engine
 on the CPU through the kernels' plain torch versions; `engine=None` takes
 the numpy host path, the parity oracle.
 
@@ -40,11 +42,14 @@ def _engine(engine, device):
 
 
 def compress(data, bytesoftype: int, level: int = 1, dst_size=None,
-             engine=_DEFAULT, device=None, custom_shift=None) -> bytes:
-    """stenos_compress: data (bytes or 1-D uint8 array) -> frame bytes."""
+             engine=_DEFAULT, device=None, custom_shift=None,
+             entropy=None) -> bytes:
+    """stenos_compress: data (bytes or 1-D uint8 array) -> frame bytes.
+    entropy="device" runs the zstd stage's entropy coder on the engine's
+    device instead of host libzstd."""
     return _frame.compress(data, bytesoftype, level, dst_size,
                            engine=_engine(engine, device),
-                           custom_shift=custom_shift)
+                           custom_shift=custom_shift, entropy=entropy)
 
 
 def decompress(frame, bytesoftype: int, dst_size=None, engine=_DEFAULT,

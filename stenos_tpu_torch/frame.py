@@ -4,8 +4,12 @@ Behavioral equivalent of stenos.cpp:403-1017 / 1052-1208, ported from
 stenos_tpu/frame.py (non-time-limited path). The per-superblock block codec
 is delegated to an engine: None is the numpy host path (codec/encode_np.py,
 native block decode), the parity oracle; a TorchEngine runs it through the
-encode and decode kernels. zstd, the LZ4 estimators and the LZ patch-up stay
-host code.
+encode and decode kernels. The zstd entropy stage is host libzstd, unless
+compress is given entropy="device" (entropy/zstd_frame.py on the engine's
+device); with an engine, the payloads of methods ZSTD, TRANSPOSED_ZSTD and
+TRANSPOSED_DELTA_ZSTD decode on its device (entropy/device_decode.py), and
+host libzstd takes only those it hands back. The LZ4 estimators and the LZ
+patch-up stay host code.
 """
 
 import numpy as np
@@ -75,14 +79,35 @@ def _guess_transposed_lz_ratio(shuffled, bpp, nbytes, glevel, use_delta):
     return (processed / csize) * (1.0 + glevel * 0.02)
 
 
+def _check_entropy(entropy, engine):
+    if entropy not in (None, "device"):
+        raise ValueError(f"unknown entropy stage {entropy!r}")
+    if entropy == "device" and engine is None:
+        raise ValueError('entropy="device" needs an engine: the host path '
+                         "stays the libzstd oracle")
+
+
+def _entropy_compress(src_bytes, cap: int, zl: int, entropy, engine):
+    """The zstd stage: libzstd (byte parity with the reference), or with
+    entropy="device" the device entropy coder on the engine's device
+    (standard zstd output and a decode-anchor sidecar)."""
+    if entropy == "device":
+        from .entropy.zstd_frame import encode_frame_device
+
+        f = encode_frame_device(src_bytes, device=engine.device)
+        return "overflow" if len(f) > cap else f
+    return zstd_host.compress(src_bytes, cap, zl)
+
+
 def compress_superblock(chunk: np.ndarray, bpp: int, level: int,
                         dst_size: int, engine=None, precomputed=None,
-                        lz_table=None) -> bytes:
+                        entropy=None, lz_table=None) -> bytes:
     """Compress one superblock -> header(4B) + payload (or raise).
 
     Mirrors compress_generic_superblock (stenos.cpp:403-679),
-    non-time-limited path.
+    non-time-limited path. entropy="device" needs an engine.
     """
+    _check_entropy(entropy, engine)
     sbytes = len(chunk)
     if dst_size < 4:
         raise StenosError(ERROR_DST_OVERFLOW)
@@ -98,7 +123,7 @@ def compress_superblock(chunk: np.ndarray, bpp: int, level: int,
         return emit(METHOD_COPY, chunk.tobytes())
 
     def do_zstd(src_bytes, method, zl):
-        r = zstd_host.compress(src_bytes, dst_size - 4, zl)
+        r = _entropy_compress(src_bytes, dst_size - 4, zl, entropy, engine)
         if isinstance(r, str) or len(r) > sbytes:
             return do_memcpy()
         return emit(method, r)
@@ -162,7 +187,7 @@ def compress_superblock(chunk: np.ndarray, bpp: int, level: int,
                                METHOD_TRANSPOSED_DELTA_ZSTD, zl)
         return do_zstd(chunk.tobytes(), METHOD_ZSTD, zl)
 
-    result = zstd_host.compress(cblock, dst_size - 4, zl)
+    result = _entropy_compress(cblock, dst_size - 4, zl, entropy, engine)
     if isinstance(result, str) or len(result) > len(cblock):
         return emit(METHOD_BLOCK, cblock)
     return emit(METHOD_BLOCK_ZSTD, result)
@@ -182,10 +207,13 @@ def _encode_blocks(chunk, bpp, budget, target_ratio, engine, precomputed=None,
 
 
 def compress(data, bytesoftype: int, level: int = 1, dst_size=None,
-             engine=None, custom_shift=None) -> bytes:
+             engine=None, custom_shift=None, entropy=None) -> bytes:
     """stenos_compress equivalent. data: bytes / 1D uint8 array.
 
-    engine: None = numpy host path; a TorchEngine = the device path."""
+    engine: None = numpy host path; a TorchEngine = the device path.
+    entropy: None = the zstd stage through libzstd; "device" = the device
+    entropy coder on the engine's device (ValueError without an engine)."""
+    _check_entropy(entropy, engine)
     if isinstance(data, (bytes, bytearray, memoryview)):
         data = np.frombuffer(bytes(data), dtype=np.uint8)
     nbytes = len(data)
@@ -233,7 +261,8 @@ def compress(data, bytesoftype: int, level: int = 1, dst_size=None,
         chunk = data[off : off + sb]
         blob = compress_superblock(
             chunk, bytesoftype, level, dst_size - pos, engine,
-            precomputed=None if pre is None else pre[i], lz_table=lz_tab)
+            precomputed=None if pre is None else pre[i], entropy=entropy,
+            lz_table=lz_tab)
         out.append(blob)
         pos += len(blob)
     return b"".join(out)
@@ -274,6 +303,19 @@ def _zstd_decompress(payload, dsize):
     return np.frombuffer(r, np.uint8)
 
 
+def _entropy_decompress(payload, dsize, engine):
+    """A zstd payload of dsize bytes: on the engine's device when it can
+    (entropy/device_decode.py), else, and on the host path, host libzstd:
+    the ladder of stenos.cpp:681-753."""
+    if engine is not None:
+        from .entropy.device_decode import decode_payload_device
+
+        r = decode_payload_device(payload, dsize, engine.device)
+        if r is not None:
+            return r.cpu().numpy()
+    return _zstd_decompress(payload, dsize)
+
+
 def decompress_superblock(code, payload, bpp, dsize, engine=None):
     """decompress_generic_superblock (stenos.cpp:681-753)."""
     if code == METHOD_BLOCK:
@@ -282,9 +324,9 @@ def decompress_superblock(code, payload, bpp, dsize, engine=None):
             raise StenosError(ERROR_INVALID_INPUT)
         return r
     if code == METHOD_ZSTD:
-        return _zstd_decompress(payload, dsize)
+        return _entropy_decompress(payload, dsize, engine)
     if code in (METHOD_TRANSPOSED_ZSTD, METHOD_TRANSPOSED_DELTA_ZSTD):
-        r = _zstd_decompress(payload, dsize)
+        r = _entropy_decompress(payload, dsize, engine)
         if len(r) != dsize:
             raise StenosError(ERROR_INVALID_INPUT)
         if code == METHOD_TRANSPOSED_DELTA_ZSTD:

@@ -6,8 +6,11 @@ the frame layer, the row parser feeding the decode kernel and the LZ
 estimators all need it, and there is no slower tier to hide behind.
 
 Only the entry points the port's paths call are bound: lz4_guess_size,
-parse_rows, parse_rows_batch and block_decode (the block codec), and
-huff_lengths (the device container's entropy stage).
+parse_rows, parse_rows_batch and block_decode (the block codec),
+huff_lengths (the device container's entropy stage), and for the zstd
+entropy stage: huff_tree_descs, matchiness, match_parse, encode_block and
+recode_reps_enc (encode); zstd_ctx, zstd_dtables, resolve_reps, huf_lits,
+huf_anchors and seq_ops (decode).
 """
 
 import ctypes
@@ -23,6 +26,9 @@ _FLAGS = ["-O3", "-march=native", "-std=c++17", "-DNDEBUG", "-shared",
 
 _P = ctypes.c_void_p
 _SZ = ctypes.c_size_t
+_SSZ = ctypes.c_ssize_t
+_I = ctypes.c_int
+_I64 = ctypes.c_int64
 
 
 def _ptr(a):
@@ -44,6 +50,25 @@ class _Native:
             _P, _SZ, _SZ, _SZ, _SZ, _P, _P, _SZ, _P, _P, _P, _P, _P]
         cdll.stn_huff_lengths.restype = None
         cdll.stn_huff_lengths.argtypes = [_P, _SZ, ctypes.c_int32, _P]
+        cdll.stn_huff_tree_descs.restype = None
+        cdll.stn_huff_tree_descs.argtypes = [_P, _SZ, _P, _P]
+        cdll.stn_zstd_ctx_size.restype = _SZ
+        cdll.stn_zstd_ctx_size.argtypes = []
+        for name, args in (
+                ("stn_zstd_dtables", [_P, _SZ, _P, _P, _P]),
+                ("stn_resolve_reps", [_SZ, _P, _P, _P, _P]),
+                ("stn_recode_reps_enc", [_SZ, _P, _P, _P, _P]),
+                ("stn_huf_lits", [_P, _SZ, _I, _I, _SZ, _P, _P]),
+                ("stn_huf_anchors", [_P, _SZ, _SZ, _P, _P, _P]),
+                ("stn_seq_ops", [_SZ, _P, _P, _P, _I64, _I64, _I64, _I64,
+                                 ctypes.c_int32, _P, _SZ]),
+                ("stn_match_parse", [_P, _SZ, _P, _I, _P, _SZ, _P, _P, _P]),
+                ("stn_encode_block", [_P, _SZ, _P, _I, _I, _P, _P, _SZ])):
+            fn = getattr(cdll, name)
+            fn.restype = _SSZ
+            fn.argtypes = args
+        cdll.stn_matchiness.restype = ctypes.c_double
+        cdll.stn_matchiness.argtypes = [_P, _SZ, _SZ]
 
     def lz4_guess_size(self, data, accel: int) -> int:
         data = bytes(data)
@@ -147,7 +172,6 @@ class _Native:
             return int(r)
         return dst
 
-
     def huff_lengths(self, counts, max_bits: int = 11):
         """counts (n, 256) int64 -> length-limited Huffman lengths (n, 256)
         int32 (0 = unused symbol)."""
@@ -156,6 +180,161 @@ class _Native:
         self._lib.stn_huff_lengths(_ptr(counts), counts.shape[0], max_bits,
                                    _ptr(out))
         return out.astype(np.int32)
+
+    def huff_tree_descs(self, lengths):
+        """lengths (n, 256) -> list of serialized Huffman tree descriptions
+        (None where the block must fall back to raw literals)."""
+        lengths = np.ascontiguousarray(lengths, np.uint8)
+        n = lengths.shape[0]
+        out = np.zeros((n, 132), np.uint8)
+        sizes = np.zeros(n, np.int32)
+        self._lib.stn_huff_tree_descs(_ptr(lengths), n, _ptr(out),
+                                      _ptr(sizes))
+        return [bytes(out[i][: sizes[i]]) if sizes[i] else None
+                for i in range(n)]
+
+    def zstd_ctx(self):
+        """Fresh per-frame zstd decode context (the Repeat_Mode FSE tables
+        and the Treeless_Literals Huffman table persist across blocks in
+        it)."""
+        return np.zeros(int(self._lib.stn_zstd_ctx_size()), np.uint8)
+
+    def zstd_dtables(self, sec, ctx):
+        """Header and table prep of one sequences section for the sequence
+        decode kernel: the nseq header, the modes and the three FSE decode
+        tables (Repeat_Mode persists in ctx), without walking the
+        bitstream. Returns (nseq, meta (8,) int32, tab (1536,) int32) or a
+        negative error. meta = [nseq, bitstream byte offset, initial bit
+        cursor, tl_ll, tl_of, tl_ml, 0, 0]; tab row ch*512 + state packs
+        sym | nb << 8 | base << 16, channels LL, OF, ML."""
+        sec = bytes(sec)
+        tab = np.zeros(3 * 512, np.int32)
+        meta = np.zeros(8, np.int32)
+        r = self._lib.stn_zstd_dtables(sec, len(sec), _ptr(ctx), _ptr(tab),
+                                       _ptr(meta))
+        if r < 0:
+            return int(r)
+        return int(r), meta, tab
+
+    def recode_reps_enc(self, ll, ofv, reps):
+        """Encode-side repeat-offset recode: raw offset_values (offset + 3)
+        become repeat codes 1-3 where the registers match; reps (3,) int64
+        updated in place. Returns the recoded offset values or a negative
+        error."""
+        ll = np.ascontiguousarray(ll, np.int32)
+        ofv = np.ascontiguousarray(ofv, np.int32)
+        n = len(ll)
+        out = np.empty(max(n, 1), np.int32)
+        r = self._lib.stn_recode_reps_enc(n, _ptr(ll), _ptr(ofv),
+                                          _ptr(reps), _ptr(out))
+        if r < 0:
+            return int(r)
+        return out[:n]
+
+    def resolve_reps(self, ll, ofv, reps):
+        """Repcode resolution of RAW (ll, offset_value) pairs; reps (3,)
+        int64 updated in place. Returns the offsets (n,) int64 or a
+        negative error."""
+        ll = np.ascontiguousarray(ll, np.int32)
+        ofv = np.ascontiguousarray(ofv, np.int32)
+        n = len(ll)
+        off = np.empty(max(n, 1), np.int64)
+        r = self._lib.stn_resolve_reps(n, _ptr(ll), _ptr(ofv), _ptr(reps),
+                                       _ptr(off))
+        if r < 0:
+            return int(r)
+        return off[:n]
+
+    def huf_lits(self, src, four: bool, treeless: bool, regenerated: int,
+                 ctx):
+        """Huffman literals payload (tree description and streams) ->
+        uint8 array, or a negative error."""
+        src = bytes(src)
+        out = np.empty(max(regenerated, 1), np.uint8)
+        r = self._lib.stn_huf_lits(src, len(src), int(four), int(treeless),
+                                   regenerated, _ptr(ctx), _ptr(out))
+        if r < 0:
+            return int(r)
+        return out[:regenerated]
+
+    def huf_anchors(self, sec, regenerated: int, ctx):
+        """Length-only anchor scan of a 4-stream Huffman literals section
+        (the bytes after the literals header): (lens (256,) uint8, anchors
+        (4, 256) int32) in the sidecar's contract, or a negative error.
+        Updates ctx's table as huf_lits would."""
+        sec = bytes(sec)
+        lens = np.zeros(256, np.uint8)
+        anch = np.zeros((4, 256), np.int32)
+        r = self._lib.stn_huf_anchors(sec, len(sec), regenerated, _ptr(ctx),
+                                      _ptr(lens), _ptr(anch))
+        if r < 0:
+            return int(r)
+        return lens, anch
+
+    def seq_ops(self, ll, ml, off, dst_base: int, lit_base: int,
+                trailing: int, out_limit: int, W: int = 512):
+        """W-chunked copy-op program of one block's sequences: (nops, 3)
+        int32 ops (dst, src, flag: 1 = literal source), destination-ordered,
+        each copying W bytes of which only those before the next op's dst
+        count. Returns the ops or a negative error."""
+        ll = np.ascontiguousarray(ll, np.int32)
+        ml = np.ascontiguousarray(ml, np.int32)
+        off = np.ascontiguousarray(off, np.int64)
+        n = len(ll)
+        total = int(ll.sum() + ml.sum()) + int(trailing)
+        # worst case per sequence: one literal op, log2(W) bootstrap ops of
+        # an overlapping match, then the W-stride bulk ops
+        cap = (W.bit_length() + 3) * max(n, 1) + total // W + 64
+        ops = np.empty((cap, 3), np.int32)
+        r = self._lib.stn_seq_ops(n, _ptr(ll), _ptr(ml), _ptr(off),
+                                  dst_base, lit_base, trailing, out_limit, W,
+                                  _ptr(ops), cap)
+        if r < 0:
+            return int(r)
+        return ops[:r]
+
+    def matchiness(self, data, sample_n: int = 16384) -> float:
+        """Duplicate-4-gram fraction of the block's first sample_n
+        positions (the host routing probe)."""
+        data = np.ascontiguousarray(data, np.uint8)
+        return float(self._lib.stn_matchiness(_ptr(data), len(data),
+                                              sample_n))
+
+    def match_parse(self, data, cand=None, reps=(1, 4, 8)):
+        """Greedy LZ77 parse of one block (<= 128 KiB): the fp4-map walk
+        (cand None) or the walk over device match candidates. reps: the
+        running repeat-offset registers. Returns (seqs, lits) or None."""
+        data = np.ascontiguousarray(data, np.uint8)
+        n = len(data)
+        carr = np.zeros(1, np.int32) if cand is None else \
+            np.ascontiguousarray(cand, np.int32)
+        cap = n // 3 + 16
+        seqs = np.empty((cap, 3), np.int32)
+        lits = np.empty(n + 16, np.uint8)
+        nlits = np.zeros(1, np.int64)
+        rarr = np.asarray(reps, np.int64)
+        r = self._lib.stn_match_parse(_ptr(data), n, _ptr(carr),
+                                      int(cand is not None), _ptr(seqs), cap,
+                                      _ptr(lits), _ptr(nlits), _ptr(rarr))
+        if r <= 0:
+            return None
+        return ([tuple(int(v) for v in t) for t in seqs[:r]],
+                lits[: int(nlits[0])].copy())
+
+    def encode_block(self, data, last: bool, reps, cand=None):
+        """One whole zstd block. reps: (3,) int64 running repeat-offset
+        registers, updated in place. Raises on failure."""
+        data = np.ascontiguousarray(data, np.uint8)
+        n = len(data)
+        carr = np.zeros(1, np.int32) if cand is None else \
+            np.ascontiguousarray(cand, np.int32)
+        out = np.empty(n + 32, np.uint8)
+        r = self._lib.stn_encode_block(_ptr(data), n, _ptr(carr),
+                                       int(cand is not None), int(last),
+                                       _ptr(reps), _ptr(out), out.size)
+        if r < 0:
+            raise RuntimeError(f"stn_encode_block: {r}")
+        return bytes(out[:r])
 
 
 _cached = None
