@@ -913,73 +913,60 @@ def zstd_exact(name, k, p):
                if a.numel() else 0 for a, b in zip(k, p))
 
 
-def seq_decode_bytes(args, nseq):
-    """K7's bytes: streams, meta, tables in; ll, ml, ofv and err out."""
-    stream, meta, tabs = args
+def seq_decode_bytes(args):
+    """K7's bytes: streams, meta, tables and lanes in; ll, ml, offset
+    values, offsets (16 B a sequence) and the summaries (32 B a section)
+    out."""
+    stream, meta, tabs, lanes = args
     return (stream.numel() + meta.numel() * 8 + tabs.numel() * 4
-            + 12 * nseq + 4 * meta.shape[0])
+            + lanes.numel() * 8 + 16 * int(meta[:, 3].sum())
+            + 32 * meta.shape[0])
 
 
 def seq_exec_bytes(args):
-    """X1's bytes: literals and sequences in, the blocks' output written."""
-    out, lits, ll, ml, off, blocks, lanes = args[:7]
-    return (lits.numel() + 12 * ll.numel() + blocks.numel() * 8
-            + lanes.numel() * 8 + int(blocks[:, 1].sum()))
+    """X1's bytes: host literals, the literals it reads from K5's rows,
+    sequences, blocks and lanes in; the blocks' output written once."""
+    out, lits, rows, ll, ml, off, blocks, lanes = args
+    b = blocks.cpu()
+    return (lits.numel() + int(b[b[:, 6] >= 0, 3].sum()) + 12 * ll.numel()
+            + blocks.numel() * 8 + lanes.numel() * 8 + int(b[:, 1].sum()))
 
 
-def merge_k7(calls):
-    """K7 inputs of several calls as one call: streams, meta (offsets
-    shifted) and tables concatenated; the outputs come in the calls'
-    order."""
-    streams, metas, tabs = [], [], []
-    soff = qoff = 0
-    for stream, meta, tab in calls:
-        m = meta.clone()
-        m[:, 0] += soff
-        m[:, 4] += qoff
-        soff += stream.numel()
-        qoff += int(meta[:, 3].sum())
-        streams.append(stream)
-        metas.append(m)
-        tabs.append(tab)
-    return torch.cat(streams), torch.cat(metas), torch.cat(tabs)
+def fresh(args):
+    """Clones of a captured call's tensors (X1 writes its out in place)."""
+    return [a.clone() if torch.is_tensor(a) else a for a in args]
 
 
-def merge_x1(calls):
-    """X1 inputs of several (args, kwargs) calls as one call over the
-    outputs laid end to end: every lane of every call is a lane of the
-    merged call, so its output is the calls' outputs concatenated; staged
-    when every call was."""
-    parts = [[] for _ in range(7)]
-    o = lo = so = bo = 0
-    for out, lits, ll, ml, off, blocks, lanes in (a for a, _ in calls):
-        b = blocks.clone()
-        b[:, 0] += o
-        b[:, 2] += lo
-        b[:, 4] += so
-        for k, t in enumerate((out, lits, ll, ml, off, b, lanes + bo)):
-            parts[k].append(t)
-        o += out.numel()
-        lo += lits.numel()
-        so += ll.numel()
-        bo += blocks.shape[0]
-    return tuple(torch.cat(t) for t in parts) + (
-        all(kw.get("staged", False) for _, kw in calls),)
+def frame_payloads(frame_bytes, bpp, n):
+    """The first n superblocks' payloads of a frame and their sizes."""
+    dsize, sb, pos = fr.get_info(frame_bytes, bpp)
+    pays, sizes = [], []
+    for i in range(min(n, -(-dsize // sb))):
+        csize = int.from_bytes(frame_bytes[pos + 1 : pos + 4], "little")
+        pays.append(frame_bytes[pos + 4 : pos + 4 + csize])
+        sizes.append(min(sb, dsize - i * sb))
+        pos += 4 + csize
+    return pays, sizes
 
 
 def phase_zstd(dev):
-    """The device zstd entropy stage. (a) decode_payload_device on a grid of
-    2-3 block payloads: device frames of literals, 64-byte records, mixed
-    blocks and a partial tail, and a libzstd frame at stenos level 9 with
-    matches across blocks (the one-lane route). (b) The text cell, TEXT_MB
-    of code text at bpp 1, level 2: compress with libzstd then decompress
-    on the card, compress(entropy="device") then decompress on the card and
-    through host libzstd, each path with the launch counts set to 0 just
-    before it and read just after; no payload may go to the host ladder.
+    """The device zstd entropy stage. (a) decode_payloads_device on one
+    batch of a grid of 2-3 block payloads: device frames of literals,
+    64-byte records, mixed blocks and a partial tail, and a libzstd frame at
+    stenos level 9 with matches across blocks (the one-lane route). (b) The
+    text cell, TEXT_MB of code text at bpp 1, level 2: compress with libzstd
+    then decompress on the card, compress(entropy="device") then decompress
+    on the card, each path with the launch counts set to 0 just before it
+    and read just after (at most 8 launches of K5, K7 and X1 a decompress:
+    one per 64 MiB chunk); no payload may go to the host ladder; both frames
+    through host libzstd too; a second decompress of each frame with the
+    decode's steps timed (device_decode.timing) gives the split, and the
+    host pass of the first chunk runs again on 1 thread and on the pool.
     (c) K6 on the sequences of 64 of its blocks, held against
-    encode_sequences and decoded back through K7. (d) K6, K7 and X1 against
-    their plain versions on inputs from (a), from 4 superblocks of (b) and
-    from (c); times by CUDA events."""
+    encode_sequences and decoded back through K7. (d) K5, K6, K7 and X1
+    against their plain versions on the calls of (a)-(c); K7 and X1 timed on
+    the path's own call, the first 64 MiB chunk of the libzstd frame's
+    decode, K7 with both stream sources."""
     res = {"launches": {}}
     err = {"fse_encode": 0, "seq_decode": 0, "seq_exec": 0,
            "huff_histogram": 0, "huff_encode_streams": 0,
@@ -989,7 +976,7 @@ def phase_zstd(dev):
     text = text_cell(TEXT_MB * MIB)
     ladder0 = device_decode.host_ladder
 
-    # (a) the tier grid
+    # (a) the tier grid, one batch
     B = 131072
     lit = rng.integers(0, 64, 3 * B).astype(np.uint8)
     rec = np.tile(rng.integers(0, 256, 64).astype(np.uint8), 3 * B // 64)
@@ -1005,35 +992,40 @@ def phase_zstd(dev):
     grid["libzstd9"] = np.concatenate([np.tile(piece, 3), text[:60_000]])
     payloads["libzstd9"] = zstd_host.compress(grid["libzstd9"].tobytes(),
                                               1 << 24, 9)
-    with Capture(device_decode, "decode_sections", 64) as k7a, \
-            Capture(device_decode, "execute", 64) as x1a, \
-            Capture(device_decode, "decode_streams", 64) as k5a:
-        for name, data in grid.items():
-            got = device_decode.decode_payload_device(payloads[name],
-                                                      len(data), dev)
-            check(got is not None and np.array_equal(got.cpu().numpy(),
-                                                      data),
-                  f"decode_payload_device of the {name} payload")
+    with Capture(device_decode, "decode_sections", 1) as k7a, \
+            Capture(device_decode, "execute", 1) as x1a, \
+            Capture(device_decode, "decode_streams", 1) as k5a:
+        got = device_decode.decode_payloads_device(
+            [payloads[k] for k in grid], [len(v) for v in grid.values()], dev)
+    for (name, data), g in zip(grid.items(), got):
+        check(g is not None and np.array_equal(g.cpu().numpy(), data),
+              f"decode_payloads_device of the {name} payload")
     lg = res["launches"]["grid"] = read_counts()
     check(device_decode.host_ladder == ladder0, "a grid payload went to the "
           "host ladder")
-    check(all(lg[k] for k in ("huff_histogram", "huff_encode_streams",
-                              "huff_decode_streams", "seq_decode",
-                              "seq_exec")), f"the grid missed a kernel: {lg}")
-    check(any(not kw.get("staged", True) for _, kw in x1a.calls),
-          "the libzstd level-9 payload did not take the one-lane route")
-    log(f"zstd tier grid on the card ({', '.join(grid)}): "
-        "decode_payload_device == input, no payload on the host ladder; "
+    check(all(lg[k] for k in ("huff_histogram", "huff_encode_streams"))
+          and all(lg[k] == 1 for k in ("huff_decode_streams", "seq_decode",
+                                       "seq_exec")),
+          f"the grid batch missed a kernel or took more than one launch: "
+          f"{lg}")
+    staged = x1a.calls[0][0][7][:, 2]
+    check(bool(staged.any()) and not bool(staged.all()),
+          "the grid batch did not take both X1 routes")
+    log(f"zstd tier grid on the card ({', '.join(grid)}), one batch: "
+        "decode_payloads_device == input, no payload on the host ladder; "
         f"launches {lg}")
     # a corrupt section (one sequence more than its stream holds): K7 sets
     # error bit 2, as its plain version does; it joins the plain checks
-    stream, meta, tabs = k7a.calls[0][0]
+    stream, meta, tabs, _ = k7a.calls[0][0]
     bad = meta[:1].clone()
     bad[0, 3] += 1
-    bad_args = [stream, bad, tabs[:1].contiguous()]
-    check(seqdec_kernel.decode_sections(*bad_args)[3].tolist() == [2],
+    bad_args = [stream, bad, tabs[:1].contiguous(),
+                torch.tensor([[0, 1]], device=dev)]
+    check(seqdec_kernel.decode_sections(*bad_args)[4][:, 3].tolist() == [2],
           "K7 did not flag a corrupt section")
-    k7a.calls.append((bad_args, {}))
+    k7_calls = [k7a.calls[0][0], bad_args]
+    x1_calls = [x1a.calls[0][0]]
+    k5_calls = [k5a.calls[0][0]]
 
     # (b) the text cell
     cell = {}
@@ -1048,9 +1040,9 @@ def phase_zstd(dev):
         check(m == {2: TEXT_MB * 8}, f"text cell {route}: superblock "
               f"methods {m}, not all METHOD_ZSTD")
         ladder = device_decode.host_ladder
-        k7 = Capture(device_decode, "decode_sections", 4)
-        x1 = Capture(device_decode, "execute", 4)
-        k5 = Capture(device_decode, "decode_streams", 4)
+        k7 = Capture(device_decode, "decode_sections", 1)
+        x1 = Capture(device_decode, "execute", 1)
+        k5 = Capture(device_decode, "decode_streams", 1)
         with k7, x1, k5:
             reset_counts()
             t2 = time.perf_counter()
@@ -1063,37 +1055,66 @@ def phase_zstd(dev):
         check(device_decode.host_ladder == ladder, f"text cell {route}: "
               f"{device_decode.host_ladder - ladder} payloads went to the "
               "host ladder")
-        check(lc["seq_decode"] and lc["seq_exec"]
-              and lc["huff_decode_streams"], f"text cell {route}: a kernel "
-              f"did not run: {lc}")
+        nchunk = -(-TEXT_MB * MIB // CHUNK_BYTES)
+        check(all(lc[k] == nchunk for k in ("huff_decode_streams",
+                                            "seq_decode", "seq_exec")),
+              f"text cell {route}: not one launch of K5, K7 and X1 a "
+              f"{CHUNK_BYTES // MIB} MiB chunk: {lc}")
         del back
-        cell[route] = {"bytes": len(frame_b), "ratio": len(text) / len(frame_b),
+        # the split: the same decompress with each step timed
+        device_decode.timing = {}
+        t4 = time.perf_counter()
+        stt.decompress(frame_b, 1, device=dev)
+        t5 = time.perf_counter()
+        split = {k: v * 1e3 for k, v in device_decode.timing.items()}
+        device_decode.timing = None
+        split["total"] = (t5 - t4) * 1e3
+        split["rest"] = split["total"] - sum(v for k, v in split.items()
+                                             if k != "total")
+        pays, sizes = frame_payloads(frame_b, 1, CHUNK_BYTES // B)
+        lens = [len(p) for p in pays]
+        buf = np.frombuffer(b"".join(pays) + b"\0" * 4, np.uint8)
+        threads = {}
+        for n in (1, device_decode.HOST_THREADS):
+            t6 = time.perf_counter()
+            native.load().zstd_prep_batch(buf, np.cumsum([0] + lens[:-1]),
+                                          lens, sizes, n,
+                                          4 * huff_kernel.WOUT_WORDS)
+            threads[n] = (time.perf_counter() - t6) * 1e3 / len(pays)
+        t0h = time.perf_counter()
+        host_back = stt.decompress(frame_b, 1, engine=None)
+        host_s = time.perf_counter() - t0h
+        check(np.array_equal(host_back, text), f"text cell {route}: the frame "
+              "does not decode through host libzstd")
+        cell[route] = {"bytes": len(frame_b),
+                       "ratio": len(text) / len(frame_b),
                        "compress_s": t1 - t0, "decompress_s": t3 - t2,
                        "compress_gbps": len(text) / (t1 - t0) / 1e9,
                        "decompress_gbps": len(text) / (t3 - t2) / 1e9,
-                       "k7_calls": k7.calls, "x1_calls": x1.calls,
-                       "k5_calls": k5.calls}
-        if route == "device":
-            t0 = time.perf_counter()
-            host_back = stt.decompress(frame_b, 1, engine=None)
-            cell[route]["host_libzstd_decompress_s"] = time.perf_counter() - t0
-            check(np.array_equal(host_back, text), "text cell: the device "
-                  "frame does not decode through host libzstd")
-            del host_back
-        del frame_b
+                       "host_libzstd_decompress_s": host_s,
+                       "split_ms": split,
+                       "split_ms_per_superblock": {
+                           k: v / (TEXT_MB * 8) for k, v in split.items()},
+                       "host_pass_ms_per_superblock_by_threads": threads,
+                       "k7_call": k7.calls[0][0], "x1_call": x1.calls[0][0],
+                       "k5_call": k5.calls[0][0]}
+        del host_back, frame_b
         c = cell[route]
         log(f"text cell {TEXT_MB} MiB code text, bpp 1, level 2, zstd stage "
-            f"{route}: ratio {c['ratio']:.4f}, compress {c['compress_s']:.3f} s"
-            f" = {c['compress_gbps']:.4f} GB/s, decompress on the card "
+            f"{route}: ratio {c['ratio']:.4f}, compress "
+            f"{c['compress_s']:.3f} s = {c['compress_gbps']:.4f} GB/s, "
+            "decompress on the card "
             f"{c['decompress_s']:.3f} s = {c['decompress_gbps']:.4f} GB/s "
-            f"(== input, 0 payloads on the host ladder); launches "
-            f"compress {res['launches'][f'compress_{route}']}, decompress "
-            f"{lc}")
-    log(f"  device frame through host libzstd: "
-        f"{cell['device']['host_libzstd_decompress_s']:.3f} s, == input")
+            f"(== input, 0 payloads on the host ladder), through host "
+            f"libzstd {host_s:.3f} s; launches compress "
+            f"{res['launches'][f'compress_{route}']}, decompress {lc}")
+        log("  split of a second decompress, ms: " + ", ".join(
+            f"{k} {v:.1f}" for k, v in split.items())
+            + f"; host pass of the first chunk, ms a superblock by threads: "
+            f"{threads}")
 
     # (c) K6 on the sequences of 64 text blocks (device candidates, native
-    # parse), then decoded back through K7 and resolve_reps
+    # parse), then decoded back through K7 (one lane a section)
     nb = min(64, len(text) // B)
     blocks = torch.from_numpy(text[: nb * B].reshape(nb, B).copy()).to(dev)
     cand = match_candidates(blocks).cpu().numpy()
@@ -1109,28 +1130,27 @@ def phase_zstd(dev):
         check(secs[i] == encode_sequences(seqs[i], reps=FRESH_REPS),
               f"K6 section {i} differs from encode_sequences")
     preps = [seqdec_kernel.prep_section(sec, lib.zstd_ctx()) for sec in secs]
-    k7c = seqdec_kernel.pack_sections(preps, dev)
-    ll, ml, ofv, e = seqdec_kernel.decode_sections(*k7c)
-    check(not e.any(), "K7 flagged a K6 section")
-    ll, ml, ofv = (t.cpu().numpy() for t in (ll, ml, ofv))
+    k7c = seqdec_kernel.pack_sections(preps, dev, [1] * nb)
+    ll, ml, _, off, summ = seqdec_kernel.decode_sections(*k7c)
+    check(not summ[:, 3].any(), "K7 flagged a K6 section")
+    ll, ml, off = (t.cpu().numpy() for t in (ll, ml, off))
     s0 = 0
     for i, p in enumerate(preps):
         n = p["nseq"]
-        off = lib.resolve_reps(ll[s0 : s0 + n], ofv[s0 : s0 + n],
-                               np.array(FRESH_REPS, np.int64))
         a = np.asarray(seqs[i])
         check(np.array_equal(ll[s0 : s0 + n], a[:, 0])
               and np.array_equal(ml[s0 : s0 + n], a[:, 2])
-              and np.array_equal(off, a[:, 1] - 3),
+              and np.array_equal(off[s0 : s0 + n], a[:, 1] - 3),
               f"K6 section {i} does not decode back to its sequences")
         s0 += n
     nseq_c = s0
+    k7_calls.append(list(k7c))
     log(f"K6 on {nb} text blocks ({nseq_c} sequences): sections == "
-        "encode_sequences, K7 + resolve_reps give the sequences back")
+        "encode_sequences, K7 gives the sequences and offsets back")
 
     # (d) plain versions, and times. K3 and K4 on the grid's literal-only
-    # blocks (encode_frame_device's calls), K5 on the grid's and on 4
-    # superblocks of each text-cell decode: each call again through the
+    # blocks (encode_frame_device's calls), K5 on the grid's batch and the
+    # first chunk of each text-cell decode: each call again through the
     # kernel, against its plain version on the same inputs
     for args, kw in k3a.calls:
         err["huff_histogram"] = max(err["huff_histogram"], huff_err(
@@ -1140,28 +1160,25 @@ def phase_zstd(dev):
         err["huff_encode_streams"] = max(err["huff_encode_streams"], huff_err(
             huff_kernel.encode_streams(*args, **kw),
             huff_kernel.encode_streams_plain(*args, **kw)))
-    k5_calls = (k5a.calls + cell["libzstd"]["k5_calls"]
-                + cell["device"]["k5_calls"])
-    for args, kw in k5_calls:
+    k5_calls += [c["k5_call"] for c in cell.values()]
+    for args in k5_calls:
         err["huff_decode_streams"] = max(err["huff_decode_streams"], huff_err(
-            (huff_decode_kernel.decode_streams(*args, **kw),),
-            (huff_decode_kernel.decode_streams_plain(*args, **kw),)))
-    check(k3a.calls and k4a.calls and all(c["k5_calls"]
-                                          for c in cell.values()),
-          "no K3/K4 call on the grid or no K5 call on a text decode")
-    # K5 as the text cell's decode calls it: 4 rows of one superblock's
-    # literals, as wide as its longest stream
-    a5 = cell["libzstd"]["k5_calls"][0][0]
+            (huff_decode_kernel.decode_streams(*args),),
+            (huff_decode_kernel.decode_streams_plain(*args),)))
+    check(k3a.calls and k4a.calls, "no K3/K4 call on the grid")
+    # K5 as the text cell's decode calls it: the first chunk's rows, as wide
+    # as their longest stream
+    a5 = cell["libzstd"]["k5_call"]
     _, p5_ms = timed(lambda: huff_decode_kernel.decode_streams_plain(*a5))
     k5t = res["k5_text_call"] = {
         "ms": cuda_ms(lambda: huff_decode_kernel.decode_streams(*a5), 10),
         "plain_ms": p5_ms, "rows": a5[0].shape[0], "width": a5[0].shape[1],
-        "bytes": (a5[0].numel() + a5[1].numel() * 4 + a5[2].numel()
+        "bytes": (a5[0].numel() + a5[1].numel() * 4 + a5[2].numel() * 4
                   + a5[0].shape[0] * STREAM)}
     k5t["bound_ms"] = k5t["bytes"] / HBM_BYTES_PER_S * 1e3
     log(f"K3 ({len(k3a.calls)} calls), K4 ({len(k4a.calls)}) on the grid and "
-        f"K5 ({len(k5_calls)}) on the grid and the text decodes == plain "
-        f"versions; K5 one text call: {k5t}")
+        f"K5 ({len(k5_calls)}) on the grid and the text decodes' first "
+        f"chunks == plain versions; K5 on one text chunk: {k5t}")
     k6_args = fse_kernel.pack_blocks(
         [fse_kernel.prep_block(sq, FRESH_REPS)[1] for sq in seqs], dev)
     k6_out = fse_kernel.encode_bitstreams(*k6_args)
@@ -1174,72 +1191,57 @@ def phase_zstd(dev):
         "bytes": (sum(a.numel() * a.element_size() for a in k6_args)
                   + int(k6_out[1].sum()) // 8 + 8 * nb),
         "blocks": nb, "sequences": nseq_c}
-    # K7 and X1: each captured call again through the kernel, against the
-    # plain version over all of a set's calls merged into one (the plain
-    # versions step once a sequence or a round, whatever the lane count).
-    # The first set, 4 superblocks of the libzstd frame's decode, is timed:
-    # ms, plain_ms and bytes (so bound_ms) are those of the call the path
-    # makes, one superblock (its first); merged_* those of the 4 as one
-    sets = (("text cell, libzstd frame", cell["libzstd"]),
-            ("grid, text cell device frame, K6 sections",
-             {"k7_calls": k7a.calls + cell["device"]["k7_calls"]
-              + [(list(k7c), {})],
-              "x1_calls": x1a.calls + cell["device"]["x1_calls"]}))
-    for what, c in sets:
-        a7 = [a for a, _ in c["k7_calls"]]
-        got = [seqdec_kernel.decode_sections(*a) for a in a7]
-        got = tuple(torch.cat(t) for t in zip(*got))
-        merged = merge_k7(a7)
-        p, p_ms = timed(lambda: seqdec_kernel.decode_sections_plain(*merged))
-        err["seq_decode"] = max(err["seq_decode"], zstd_exact("K7", got, p))
-        a1 = c["x1_calls"]
-        got = torch.cat([seq_exec.execute(
-            *[a.clone() if torch.is_tensor(a) else a for a in args], **kw)
-            for args, kw in a1])
-        merged1 = merge_x1(a1)
-        p1, p1_ms = timed(lambda: seq_exec.execute_plain(*merged1))
-        err["seq_exec"] = max(err["seq_exec"], zstd_exact("X1", (got,),
-                                                          (p1,)))
-        del p, p1
-        log(f"K7 ({len(a7)} calls, {merged[1].shape[0]} sections) and X1 "
-            f"({len(a1)} calls) on {what}: max abs err vs the plain "
-            f"versions {err['seq_decode']}, {err['seq_exec']}")
-        if "seq_decode" in times:
-            continue
-        n7 = int(merged[1][:, 3].sum())
-        n70 = int(a7[0][1][:, 3].sum())
-        _, p_ms0 = timed(lambda: seqdec_kernel.decode_sections_plain(*a7[0]))
-        times["seq_decode"] = {
-            "ms": cuda_ms(lambda: seqdec_kernel.decode_sections(*a7[0]), 10),
-            "plain_ms": p_ms0, "bytes": seq_decode_bytes(a7[0], n70),
-            "sections": a7[0][1].shape[0], "sequences": n70,
-            "merged_ms": cuda_ms(lambda: seqdec_kernel.decode_sections(
-                *merged), 10),
-            "merged_plain_ms": p_ms,
-            "merged_bytes": seq_decode_bytes(merged, n7),
-            "merged_sections": merged[1].shape[0], "merged_sequences": n7}
-        args0, kw0 = a1[0]
-        _, p1_ms0 = timed(lambda: seq_exec.execute_plain(
-            *[a.clone() if torch.is_tensor(a) else a for a in args0],
-            **kw0))
-        times["seq_exec"] = {
-            "ms": cuda_ms(lambda: seq_exec.execute(*args0, **kw0), 10),
-            "plain_ms": p1_ms0, "bytes": seq_exec_bytes(args0),
-            "lanes": args0[6].shape[0], "sequences": args0[2].numel(),
-            "merged_ms": cuda_ms(lambda: seq_exec.execute(*merged1), 10),
-            "merged_plain_ms": p1_ms,
-            "merged_bytes": seq_exec_bytes(merged1),
-            "merged_lanes": merged1[6].shape[0],
-            "merged_sequences": merged1[2].numel(), "staged": merged1[7]}
+    # K7 (both stream sources) and X1 on every captured call, against the
+    # plain versions; the libzstd frame's first chunk is timed
+    k7_calls += [c["k7_call"] for c in cell.values()]
+    x1_calls += [c["x1_call"] for c in cell.values()]
+    keep = seqdec_kernel.STAGED
+    plain_ms = {}
+    for a7 in k7_calls:
+        p, p_ms = timed(lambda: seqdec_kernel.decode_sections_plain(*a7))
+        plain_ms[id(a7)] = p_ms
+        for variant in (0, 1):
+            seqdec_kernel.STAGED = variant
+            err["seq_decode"] = max(err["seq_decode"], zstd_exact(
+                "K7", seqdec_kernel.decode_sections(*a7), p))
+        seqdec_kernel.STAGED = keep
+        del p
+    for a1 in x1_calls:
+        got = seq_exec.execute(*fresh(a1))
+        p, p1_ms = timed(lambda: seq_exec.execute_plain(*fresh(a1)))
+        plain_ms[id(a1)] = p1_ms
+        err["seq_exec"] = max(err["seq_exec"], zstd_exact("X1", (got,), (p,)))
+        del got, p
+    log(f"K7 ({len(k7_calls)} calls, both stream sources) and X1 "
+        f"({len(x1_calls)} calls) on the grid batch, the K6 sections, a "
+        "corrupt section and the text decodes' first chunks: max abs err vs "
+        f"the plain versions {err['seq_decode']}, {err['seq_exec']}")
+    a7 = cell["libzstd"]["k7_call"]
+    ms7 = {}
+    for variant in (0, 1):
+        seqdec_kernel.STAGED = variant
+        ms7[variant] = cuda_ms(lambda: seqdec_kernel.decode_sections(*a7), 10)
+    seqdec_kernel.STAGED = keep
+    times["seq_decode"] = {
+        "ms": ms7[keep], "ms_global_words": ms7[0],
+        "ms_staged_stream": ms7[1], "plain_ms": plain_ms[id(a7)],
+        "bytes": seq_decode_bytes(a7), "lanes": a7[3].shape[0],
+        "sections": a7[1].shape[0], "sequences": int(a7[1][:, 3].sum()),
+        "longest_section": int(a7[1][:, 3].max())}
+    a1 = cell["libzstd"]["x1_call"]
+    x1 = fresh(a1)
+    times["seq_exec"] = {
+        "ms": cuda_ms(lambda: seq_exec.execute(*x1), 10),
+        "plain_ms": plain_ms[id(a1)], "bytes": seq_exec_bytes(a1),
+        "lanes": a1[7].shape[0], "blocks": a1[6].shape[0],
+        "staged_lanes": int(a1[7][:, 2].sum()), "sequences": a1[3].numel()}
     check(not any(err.values()), f"zstd kernels differ: {err}")
     for name, t in times.items():
         t["bound_ms"] = t["bytes"] / HBM_BYTES_PER_S * 1e3
-        if "merged_bytes" in t:
-            t["merged_bound_ms"] = t["merged_bytes"] / HBM_BYTES_PER_S * 1e3
         log(f"{name}: " + ", ".join(f"{k} {v:.4f}" if isinstance(v, float)
                                     else f"{k} {v}" for k, v in t.items()))
     for c in cell.values():
-        del c["k7_calls"], c["x1_calls"], c["k5_calls"]
+        del c["k7_call"], c["x1_call"], c["k5_call"]
     res["text_cell"] = cell
     return res, times, err
 

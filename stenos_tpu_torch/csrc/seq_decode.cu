@@ -5,12 +5,25 @@
 // make_seqdec_kernel. The TPU kernel decodes 128 sections side by side, one
 // per vector lane, in chunks of 512 sequences over buckets of stream words,
 // selecting table entries and stream words with one-of-512 and one-of-16
-// masked sums. Here: one CTA of 32 threads per section. The threads stage
-// the section's three decode tables (LL, OF, ML; 3 x 512 entries of
-// sym | nb << 8 | base << 16) in shared memory; thread 0 then walks the
-// backward bitstream (RFC 8878 §3.1.1.3.2) with a 64-bit container loaded
-// from the 8 bytes that straddle the cursor, as libzstd's BIT_DStream does.
-// There are no buckets: any section of a 128 KiB block decodes.
+// masked sums; the repeat offsets were resolved on the host afterwards.
+//
+// Here one CTA of one warp is a lane: the sections of one zstd frame (a
+// payload), walked in order, so that the repeat-offset registers [1, 4, 8]
+// chain across its blocks on the card (stn_resolve_reps, bit for bit, its
+// error included). One launch covers every payload of a 64 MiB chunk of
+// superblocks: 14 KiB of shared memory a CTA puts 16 lanes on an SM, 2,112
+// on the card, more than a chunk holds. For each section the warp stages the
+// three decode tables (LL, OF, ML; 3 x 512 entries of sym | nb << 8 |
+// base << 16) in shared memory, then walks the backward bitstream
+// (RFC 8878 §3.1.1.3.2) with a 64-bit container of two aligned 32-bit
+// stream words and 32-bit cursors (a section of a 128 KiB block has fewer
+// than 2^21 bits). The word below the container comes from one of two
+// sources, chosen at launch:
+//   staged = 0  global memory (__ldg), the next word loaded one shift ahead;
+//   staged = 1  a window of 2,048 words in shared memory, filled by the
+//               whole warp in coalesced loads each time the cursor leaves it.
+// The whole warp walks in step (one instruction stream, so it costs what one
+// thread does) and lane 0 stores.
 //
 // Semantics are the TPU kernel's: the initial states read tl_ll, tl_of,
 // tl_ml bits; each sequence decodes the OF, ML, LL values (an OF code over
@@ -18,12 +31,18 @@
 // sequence, updates the LL, ML and OF states. A read of k bits at cursor bp
 // yields bits [bp - k, bp) with zeros below bit 0 and past the stream, and
 // moves the cursor to bp - k; error bit 2 is set when the cursor does not end
-// at exactly 0. Outputs are the raw (ll, ml, offset_value) per sequence;
-// repeat offsets are resolved on the host (stn_resolve_reps).
+// at exactly 0. A repeat offset that resolves to 0 or less sets error bit 4;
+// the registers take it and the walk goes on.
 //
-// Bound: bytes (stream, tables and metadata in, 12 bytes a sequence out).
-// The real limit is the serial chain of dependent table loads and bit reads
-// of one thread per section.
+// Outputs: the raw (ll, ml, offset_value) and the resolved offset of every
+// sequence, and per section [sum ll, sum ml, lowest match source relative to
+// the block start (0 without sequences), error bits].
+//
+// Bound: bytes (stream, tables and metadata in, 16 bytes a sequence and 32
+// a section out). The real limit is the serial chain of one walk: dependent
+// shared-memory table loads and bit extractions, a few tens of cycles a
+// read. The chunk-wide launch runs the walks of all its payloads side by
+// side, so a call takes about as long as its longest section.
 
 #include <cstdint>
 
@@ -35,6 +54,8 @@ namespace {
 
 constexpr int kStates = 512;
 constexpr int kMeta = 8;  // stream_off, stream_len, bp0, nseq, seq_off, tl_ll, tl_of, tl_ml
+constexpr int kSumm = 4;  // sum ll, sum ml, lowest match source, error bits
+constexpr int kWin = 2048;  // staged stream words
 
 __constant__ int kLLBase[36] = {
     0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15,
@@ -55,111 +76,255 @@ __constant__ int kMLBits[53] = {
     1, 1, 1, 1, 2, 2, 3, 3, 4, 4, 5, 7, 8, 9, 10, 11,
     12, 13, 14, 15, 16};
 
-struct BackwardBits {
-    const uint8_t* s;
-    long long len;
-    long long bp;   // bits below the cursor are unread
-    long long cb;   // container's first byte, -1 when empty
-    uint64_t cont;  // bytes [cb, cb + 8) of the stream, zeros past len
+// The aligned 32-bit words of one section's stream: word j holds stream
+// bytes [4j - a0, 4j - a0 + 4), a0 = the stream's offset from 4-byte
+// alignment; bytes outside the stream read as 0, words outside it too.
+struct Words {
+    const uint32_t* w;
+    int n;
+    uint32_t m0, mlast;
 
-    __device__ void load(long long b) {
-        uint64_t v = 0;
-        for (int i = 0; i < 8; ++i)
-            if (b + i < len) v |= (uint64_t)s[b + i] << (8 * i);
-        cb = b;
-        cont = v;
+    __device__ Words(const uint8_t* s, int len) {
+        const uintptr_t p = (uintptr_t)s;
+        const int a0 = (int)(p & 3);
+        w = (const uint32_t*)(p - a0);
+        n = (a0 + len + 3) >> 2;
+        m0 = 0xffffffffu << (8 * a0);
+        const int e = a0 + len - 4 * (n - 1);  // bytes used of the last word
+        mlast = e >= 4 ? 0xffffffffu : (1u << (8 * e)) - 1;
     }
-
-    // k <= 32 bits [bp - k, bp), zeros below bit 0
-    __device__ uint32_t read(int k) {
-        if (k <= 0) return 0;
-        const long long w = bp - k;
-        const uint64_t mask = (1ull << k) - 1;
-        uint32_t v = 0;
-        if (bp > 0) {
-            if (w >= 0) {
-                if (cb < 0 || w < cb * 8 || bp > cb * 8 + 64) {
-                    const long long b = ((bp + 7) >> 3) - 8;
-                    load(b > 0 ? b : 0);
-                }
-                v = (uint32_t)((cont >> (w - cb * 8)) & mask);
-            } else {
-                if (cb != 0) load(0);
-                v = (uint32_t)(((cont & ((1ull << bp) - 1)) << (-w)) & mask);
-            }
-        }
-        bp = w;
+    __device__ uint32_t operator()(int j) const {
+        if (j < 0 || j >= n) return 0;
+        uint32_t v = __ldg(w + j);
+        if (j == 0) v &= m0;
+        if (j == n - 1) v &= mlast;
         return v;
     }
 };
 
-__global__ void __launch_bounds__(32)
-seq_decode(const uint8_t* __restrict__ bytes, const long long* __restrict__ meta,
-           const int* __restrict__ tabs, int* __restrict__ ll_out,
-           int* __restrict__ ml_out, int* __restrict__ of_out,
-           int* __restrict__ err_out) {
-    __shared__ int s_tab[3 * kStates];
-    const long long sec = blockIdx.x;
-    const long long* m = meta + sec * kMeta;
-    for (int i = threadIdx.x; i < 3 * kStates; i += 32)
-        s_tab[i] = tabs[sec * 3 * kStates + i];
-    __syncthreads();
-    if (threadIdx.x != 0) return;
+// Global-memory source: next() hands out words jn, jn - 1, ..., the word
+// after the one returned already in flight.
+struct GlobalSrc {
+    Words words;
+    int jn;
+    uint32_t q;
 
-    const int* t_ll = s_tab;
-    const int* t_of = s_tab + kStates;
-    const int* t_ml = s_tab + 2 * kStates;
-    auto entry = [](const int* t, int s) { return s >= 0 && s < kStates ? t[s] : 0; };
+    __device__ GlobalSrc(const Words& ws, uint32_t*) : words(ws) {}
+    __device__ uint64_t start(int jl) {
+        jn = jl - 1;
+        q = words(jn);
+        return ((uint64_t)words(jl + 1) << 32) | words(jl);
+    }
+    __device__ uint32_t next() {
+        const uint32_t v = q;
+        q = words(--jn);
+        return v;
+    }
+};
 
-    BackwardBits br{bytes + m[0], m[1], m[2], -1, 0};
-    const long long nseq = m[3];
-    int* ll = ll_out + m[4];
-    int* ml = ml_out + m[4];
-    int* of = of_out + m[4];
-    int s_ll = (int)br.read((int)m[5]);
-    int s_of = (int)br.read((int)m[6]);
-    int s_ml = (int)br.read((int)m[7]);
-    int err = 0;
-    for (long long i = 0; i < nseq; ++i) {
-        const int e_of = entry(t_of, s_of);
-        int ofc = e_of & 255;
-        if (ofc > 30) {
-            err |= 1;
-            ofc = 30;
+// Shared-memory source: a window of kWin words [base, base + kWin), filled
+// by the whole warp (every lane calls next() in step).
+struct SharedSrc {
+    Words words;
+    uint32_t* win;
+    int base, jn;
+
+    __device__ SharedSrc(const Words& ws, uint32_t* s) : words(ws), win(s) {}
+    __device__ void fill(int top) {
+        base = top - kWin + 1;
+        __syncwarp();
+        for (int i = threadIdx.x; i < kWin; i += 32) win[i] = words(base + i);
+        __syncwarp();
+    }
+    __device__ uint64_t start(int jl) {
+        fill(jl + 1);
+        jn = jl - 1;
+        return ((uint64_t)win[jl + 1 - base] << 32) | win[jl - base];
+    }
+    __device__ uint32_t next() {
+        if (jn < base) fill(jn);
+        return win[jn-- - base];
+    }
+};
+
+// Backward bit reader: cont holds stream bits [32 jl, 32 jl + 64) (in the
+// aligned words' coordinates) and 32 jl <= bp <= 32 jl + 64 holds between
+// reads; a read of k <= 32 bits shifts in at most one word.
+template <class Src>
+struct Reader {
+    Src src;
+    uint64_t cont;
+    int jl, bp;
+
+    __device__ Reader(const Words& ws, uint32_t* s, int bp0) : src(ws, s) {
+        bp = bp0;
+        jl = ((bp0 - 1) >> 5) - 1;
+        cont = src.start(jl);
+    }
+    __device__ uint32_t read(int k) {
+        if (k <= 0) return 0;
+        const int w = bp - k;
+        if (w < jl * 32) {
+            cont = (cont << 32) | src.next();
+            --jl;
         }
-        of[i] = (int)((1u << ofc) + br.read(ofc));
-        const int e_ml = entry(t_ml, s_ml);
-        const int mlc = e_ml & 255;
-        const int mlb = mlc < 53 ? kMLBase[mlc] : 0;
-        ml[i] = mlb + (int)br.read(mlc < 53 ? kMLBits[mlc] : 0);
-        const int e_ll = entry(t_ll, s_ll);
-        const int llc = e_ll & 255;
-        const int llb = llc < 36 ? kLLBase[llc] : 0;
-        ll[i] = llb + (int)br.read(llc < 36 ? kLLBits[llc] : 0);
-        if (i + 1 < nseq) {
-            s_ll = (e_ll >> 16) + (int)br.read((e_ll >> 8) & 255);
-            s_ml = (e_ml >> 16) + (int)br.read((e_ml >> 8) & 255);
-            s_of = (e_of >> 16) + (int)br.read((e_of >> 8) & 255);
+        bp = w;
+        return (uint32_t)(cont >> (w - jl * 32)) &
+               (uint32_t)((1ull << k) - 1);
+    }
+};
+
+template <class Src>
+__device__ void walk_lane(const uint8_t* __restrict__ bytes,
+                          const long long* __restrict__ meta,
+                          const int* __restrict__ tabs, long long s0,
+                          long long s1, int* __restrict__ ll_out,
+                          int* __restrict__ ml_out, int* __restrict__ of_out,
+                          int* __restrict__ off_out,
+                          long long* __restrict__ summ, int* s_tab,
+                          uint32_t* s_win) {
+    const int lane = threadIdx.x;
+    int r0 = 1, r1 = 4, r2 = 8;  // repeat-offset registers, chained
+    for (long long sec = s0; sec < s1; ++sec) {
+        const long long* m = meta + sec * kMeta;
+        __syncwarp();
+        for (int i = lane; i < 3 * kStates; i += 32)
+            s_tab[i] = tabs[sec * 3 * kStates + i];
+        __syncwarp();
+        const int* t_ll = s_tab;
+        const int* t_of = s_tab + kStates;
+        const int* t_ml = s_tab + 2 * kStates;
+        auto entry = [](const int* t, int s) {
+            return s >= 0 && s < kStates ? t[s] : 0;
+        };
+
+        const uint8_t* s = bytes + m[0];
+        const Words ws(s, (int)m[1]);
+        const int a0 = (int)((uintptr_t)s & 3);
+        Reader<Src> br(ws, s_win, (int)m[2] + 8 * a0);
+        const int nseq = (int)m[3];
+        int* ll = ll_out + m[4];
+        int* ml = ml_out + m[4];
+        int* of = of_out + m[4];
+        int* off_o = off_out + m[4];
+        int s_ll = (int)br.read((int)m[5]);
+        int s_of = (int)br.read((int)m[6]);
+        int s_ml = (int)br.read((int)m[7]);
+        int err = 0;
+        long long sum_ll = 0, sum_ml = 0, lo_src = 0;
+        for (int i = 0; i < nseq; ++i) {
+            const int e_of = entry(t_of, s_of);
+            int ofc = e_of & 255;
+            if (ofc > 30) {
+                err |= 1;
+                ofc = 30;
+            }
+            const int ofv = (int)((1u << ofc) + br.read(ofc));
+            const int e_ml = entry(t_ml, s_ml);
+            const int mlc = e_ml & 255;
+            const int mv = (mlc < 53 ? kMLBase[mlc] : 0) +
+                           (int)br.read(mlc < 53 ? kMLBits[mlc] : 0);
+            const int e_ll = entry(t_ll, s_ll);
+            const int llc = e_ll & 255;
+            const int lv = (llc < 36 ? kLLBase[llc] : 0) +
+                           (int)br.read(llc < 36 ? kLLBits[llc] : 0);
+            if (i + 1 < nseq) {
+                s_ll = (e_ll >> 16) + (int)br.read((e_ll >> 8) & 255);
+                s_ml = (e_ml >> 16) + (int)br.read((e_ml >> 8) & 255);
+                s_of = (e_of >> 16) + (int)br.read((e_of >> 8) & 255);
+            }
+            // repeat offsets (RFC 8878 §3.1.1.5, stn_resolve_reps)
+            int o;
+            if (ofv > 3) {
+                o = ofv - 3;
+                r2 = r1;
+                r1 = r0;
+                r0 = o;
+            } else {
+                const int idx = ofv - 1 + (lv == 0 ? 1 : 0);
+                if (idx == 0) {
+                    o = r0;
+                } else if (idx == 1) {
+                    o = r1;
+                    r1 = r0;
+                    r0 = o;
+                } else {
+                    o = idx == 2 ? r2 : r0 - 1;
+                    r2 = r1;
+                    r1 = r0;
+                    r0 = o;
+                }
+            }
+            if (o <= 0) err |= 4;
+            sum_ll += lv;
+            const long long src = sum_ll + sum_ml - o;
+            lo_src = i == 0 || src < lo_src ? src : lo_src;
+            sum_ml += mv;
+            if (lane == 0) {
+                ll[i] = lv;
+                ml[i] = mv;
+                of[i] = ofv;
+                off_o[i] = o;
+            }
+        }
+        if (br.bp != 8 * a0 && nseq > 0) err |= 2;
+        if (lane == 0) {
+            long long* out = summ + sec * kSumm;
+            out[0] = sum_ll;
+            out[1] = sum_ml;
+            out[2] = lo_src;
+            out[3] = err;
         }
     }
-    if (br.bp != 0 && nseq > 0) err |= 2;
-    err_out[sec] = err;
+}
+
+template <bool kStaged>
+__global__ void __launch_bounds__(32)
+seq_decode(const uint8_t* __restrict__ bytes, const long long* __restrict__ meta,
+           const int* __restrict__ tabs, const long long* __restrict__ lanes,
+           int* __restrict__ ll_out, int* __restrict__ ml_out,
+           int* __restrict__ of_out, int* __restrict__ off_out,
+           long long* __restrict__ summ) {
+    __shared__ int s_tab[3 * kStates];
+    __shared__ uint32_t s_win[kStaged ? kWin : 1];
+    const long long s0 = lanes[2 * blockIdx.x], s1 = lanes[2 * blockIdx.x + 1];
+    if (kStaged)
+        walk_lane<SharedSrc>(bytes, meta, tabs, s0, s1, ll_out, ml_out, of_out,
+                             off_out, summ, s_tab, s_win);
+    else
+        walk_lane<GlobalSrc>(bytes, meta, tabs, s0, s1, ll_out, ml_out, of_out,
+                             off_out, summ, s_tab, s_win);
 }
 
 }  // namespace
 
 #ifdef __CUDACC__
 // C interface (ctypes). Pointers are device pointers: the concatenated
-// section bitstreams, meta (nsec, 8) int64, tables (nsec, 1536) int32, the
-// (total,) int32 outputs at each section's seq_off and err (nsec,) int32.
-// The launch goes on `stream`; the return value is the first CUDA error of
-// the call (0 when none).
+// section bitstreams (4-byte aligned, a multiple of 4 bytes long), meta
+// (nsec, 8) int64, tables (nsec, 1536) int32, lanes (nlanes, 2) int64
+// section ranges, the (total,) int32 outputs ll, ml, offset values and
+// resolved offsets at each section's seq_off, and summ (nsec, 4) int64.
+// staged picks the stream source (see the note at the top). The launch goes
+// on `stream`; the return value is the first CUDA error of the call (0 when
+// none).
 extern "C" int stenos_seq_decode(const void* bytes, const void* meta,
-                                 const void* tabs, long long nsec, void* ll,
-                                 void* ml, void* of, void* err, void* stream) {
-    seq_decode<<<(unsigned)nsec, 32, 0, (cudaStream_t)stream>>>(
-        (const uint8_t*)bytes, (const long long*)meta, (const int*)tabs,
-        (int*)ll, (int*)ml, (int*)of, (int*)err);
+                                 const void* tabs, const void* lanes,
+                                 long long nlanes, void* ll, void* ml,
+                                 void* of, void* off, void* summ, int staged,
+                                 void* stream) {
+    const cudaStream_t st = (cudaStream_t)stream;
+    const auto b = (const uint8_t*)bytes;
+    const auto m = (const long long*)meta;
+    const auto t = (const int*)tabs;
+    const auto l = (const long long*)lanes;
+    if (staged)
+        seq_decode<true><<<(unsigned)nlanes, 32, 0, st>>>(
+            b, m, t, l, (int*)ll, (int*)ml, (int*)of, (int*)off,
+            (long long*)summ);
+    else
+        seq_decode<false><<<(unsigned)nlanes, 32, 0, st>>>(
+            b, m, t, l, (int*)ll, (int*)ml, (int*)of, (int*)off,
+            (long long*)summ);
     return (int)cudaGetLastError();
 }
 #endif

@@ -6,20 +6,31 @@
 // torch such a round loop costs two launches a round, ~30-45k rounds a
 // 128 KiB block, so the sequences execute here directly.
 //
-// One warp per lane; a lane runs its blocks in order. For each sequence
-// (ll, ml, off) the warp copies ll literals in parallel, then the match:
-// out[p + i] = out[p - off + (i % off)] for i < ml. Every source byte lies
-// before p and is final, so an overlapping match (off < ml) is one parallel
-// copy too; the warp synchronises between the two steps and between
-// sequences. Trailing literals follow the last sequence. With `staged` set,
-// every lane is one block whose matches stay inside it (the caller checked)
-// and the block is built in shared memory (<= 128 KiB) and written out in
-// coalesced stores; otherwise the lane works in device memory, where a
-// match may read earlier blocks of the frame.
+// One launch covers every block of a 64 MiB chunk of payloads. A CTA of 8
+// warps is a lane; a lane runs its blocks in order. Per block, two passes:
+//   (a) literals: the CTA scans ll and ll + ml over tiles of 256 sequences
+//       (warp shuffles, then the 8 warp totals), and each thread copies its
+//       sequence's literals to their final place; the trailing literals
+//       follow in coalesced copies by the whole CTA. Literals come from the
+//       host literal buffer or in place from the anchored Huffman decode's
+//       rows (K5: a block's literals are its 4 stream rows, ceil(n/4)
+//       symbols each, the last one the rest). Literals do not depend on
+//       matches, so this pass is parallel.
+//   (b) matches: warp 0 runs them in order, out[p + i] = out[p - off +
+//       (i % off)] for i < ml (every source byte lies before p and is final,
+//       so an overlapping match is one parallel copy too), with one warp
+//       barrier a sequence. The next tile's 32 sequences are loaded into
+//       registers while the current tile runs (a register double buffer),
+//       so no device-memory load sits in the chain.
+// A staged lane is one block whose matches stay inside it (the caller
+// checked): it is built in up to 128 KiB of dynamic shared memory and
+// written out in 16-byte stores. Other lanes (a frame whose matches reach
+// into earlier blocks) work in device memory, with the same two passes.
 //
 // Bound: bytes (literals and sequences in, the output written once). The
-// real limit is the serial chain of one warp per block: two warp barriers
-// and a dependent shared-memory round trip a sequence.
+// real limit is the match pass's serial chain: a dependent shared-memory
+// copy and a warp barrier a sequence. One CTA with 128 KiB staged fits an
+// SM, so a chunk of 512 blocks runs in about 4 waves.
 
 #include <cstdint>
 
@@ -29,58 +40,187 @@
 
 namespace {
 
-constexpr int kBlockCols = 6;  // out_off, out_len, lit_off, lit_len, seq_off, nseq
+constexpr int kCols = 7;  // out_off, out_len, lit_off, lit_len, seq_off, nseq, row
 constexpr int kMaxStaged = 131072;
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr long long kRowBytes = 32768;  // a K5 output row
 
-__global__ void __launch_bounds__(32)
-seq_exec(uint8_t* out, const uint8_t* __restrict__ lits,
-         const int* __restrict__ ll, const int* __restrict__ ml,
-         const int* __restrict__ off, const long long* __restrict__ blocks,
-         const long long* __restrict__ lanes, int staged) {
-    extern __shared__ uint8_t s_out[];
-    const int t = threadIdx.x;
-    const long long b0 = lanes[2 * blockIdx.x], b1 = lanes[2 * blockIdx.x + 1];
-    for (long long b = b0; b < b1; ++b) {
-        const long long* blk = blocks + b * kBlockCols;
-        const long long out_len = blk[1], lit_len = blk[3];
-        const long long seq0 = blk[4], nseq = blk[5];
-        uint8_t* o = staged ? s_out : out + blk[0];
-        const uint8_t* lp = lits + blk[2];
-        const uint8_t* lit_end = lp + lit_len;
-        long long pos = 0;
-        for (long long g = 0; g < nseq; g += 32) {
-            int my_ll = 0, my_ml = 0, my_off = 1;
-            if (g + t < nseq) {
-                my_ll = ll[seq0 + g + t];
-                my_ml = ml[seq0 + g + t];
-                my_off = off[seq0 + g + t];
-            }
-            const int cnt = nseq - g < 32 ? (int)(nseq - g) : 32;
-            for (int k = 0; k < cnt; ++k) {
-                const int l = __shfl_sync(0xffffffffu, my_ll, k);
-                const int m = __shfl_sync(0xffffffffu, my_ml, k);
-                const int d = __shfl_sync(0xffffffffu, my_off, k);
-                for (int j = t; j < l; j += 32) o[pos + j] = lp[j];
-                lp += l;
-                pos += l;
-                __syncwarp();
-                const uint8_t* src = o + pos - d;
-                if (d >= m) {
-                    for (int j = t; j < m; j += 32) o[pos + j] = src[j];
-                } else {
-                    for (int j = t; j < m; j += 32) o[pos + j] = src[j % d];
-                }
-                pos += m;
-                __syncwarp();
+// Literals [t0, t0 + n) of a block to dst, by one thread. row < 0: the
+// literals are lit[0, lit_len); else rows row .. row + 3, s1 a row.
+__device__ void copy_lits(uint8_t* dst, const uint8_t* lit,
+                          const uint8_t* rows, long long row, int s1, int t0,
+                          int n) {
+    if (row < 0) {
+        for (int j = 0; j < n; ++j) dst[j] = lit[t0 + j];
+        return;
+    }
+    int r = t0 / s1, c = t0 - r * s1;
+    const uint8_t* s = rows + (row + r) * kRowBytes + c;
+    for (int j = 0; j < n; ++j) {
+        if (c == s1) {
+            c = 0;
+            s = rows + (row + ++r) * kRowBytes;
+        }
+        dst[j] = *s++;
+        ++c;
+    }
+}
+
+// The same, by the whole CTA in coalesced byte copies (one row at a time).
+__device__ void copy_lits_cta(uint8_t* dst, const uint8_t* lit,
+                              const uint8_t* rows, long long row, int s1,
+                              int t0, int n) {
+    if (row < 0) {
+        for (int j = threadIdx.x; j < n; j += kThreads) dst[j] = lit[t0 + j];
+        return;
+    }
+    int t = t0;
+    while (t < t0 + n) {
+        const int r = t / s1, c = t - r * s1;
+        const int len = min(s1 - c, t0 + n - t);
+        const uint8_t* s = rows + (row + r) * kRowBytes + c;
+        uint8_t* d = dst + (t - t0);
+        for (int j = threadIdx.x; j < len; j += kThreads) d[j] = s[j];
+        t += len;
+    }
+}
+
+// Exclusive block-wide scan of a and b (each thread's value replaced by the
+// sum of the lower threads'); ta, tb get the totals.
+__device__ void scan2(int& a, int& b, int& ta, int& tb, int* s_a, int* s_b) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    int ia = a, ib = b;
+    for (int d = 1; d < 32; d <<= 1) {
+        const int xa = __shfl_up_sync(0xffffffffu, ia, d);
+        const int xb = __shfl_up_sync(0xffffffffu, ib, d);
+        if (lane >= d) {
+            ia += xa;
+            ib += xb;
+        }
+    }
+    if (lane == 31) {
+        s_a[warp] = ia;
+        s_b[warp] = ib;
+    }
+    __syncthreads();
+    if (warp == 0) {
+        const int va = lane < kWarps ? s_a[lane] : 0;
+        const int vb = lane < kWarps ? s_b[lane] : 0;
+        int ca = va, cb = vb;
+        for (int d = 1; d < kWarps; d <<= 1) {
+            const int xa = __shfl_up_sync(0xffffffffu, ca, d);
+            const int xb = __shfl_up_sync(0xffffffffu, cb, d);
+            if (lane >= d) {
+                ca += xa;
+                cb += xb;
             }
         }
-        const long long rest = lit_end - lp;
-        for (long long j = t; j < rest; j += 32) o[pos + j] = lp[j];
-        if (staged) {
-            __syncwarp();
+        if (lane < kWarps) {
+            s_a[lane] = ca - va;
+            s_b[lane] = cb - vb;
+        }
+        if (lane == kWarps - 1) {
+            s_a[kWarps] = ca;
+            s_b[kWarps] = cb;
+        }
+    }
+    __syncthreads();
+    a = s_a[warp] + ia - a;
+    b = s_b[warp] + ib - b;
+    ta = s_a[kWarps];
+    tb = s_b[kWarps];
+    __syncthreads();
+}
+
+__global__ void __launch_bounds__(kThreads)
+seq_exec(uint8_t* out, const uint8_t* __restrict__ lits,
+         const uint8_t* __restrict__ rows, const int* __restrict__ ll,
+         const int* __restrict__ ml, const int* __restrict__ off,
+         const long long* __restrict__ blocks,
+         const long long* __restrict__ lanes) {
+    extern __shared__ uint4 s_dyn[];
+    __shared__ int s_a[kWarps + 1], s_b[kWarps + 1];
+    uint8_t* s_out = (uint8_t*)s_dyn;
+    const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+    const long long* ln = lanes + 3 * blockIdx.x;
+    const bool staged = ln[2] != 0;
+    for (long long b = ln[0]; b < ln[1]; ++b) {
+        const long long* blk = blocks + b * kCols;
+        const int out_len = (int)blk[1], lit_len = (int)blk[3];
+        const long long seq0 = blk[4];
+        const int nseq = (int)blk[5];
+        const long long row = blk[6];
+        const int s1 = (lit_len + 3) / 4;
+        const uint8_t* lit = lits + blk[2];
+        uint8_t* o = staged ? s_out : out + blk[0];
+
+        // (a) literals to their final places
+        int c_ll = 0, c_pos = 0;  // sums over the tiles before
+        for (int g = 0; g < nseq; g += kThreads) {
+            const int i = g + t;
+            int l = i < nseq ? ll[seq0 + i] : 0;
+            int p = i < nseq ? l + ml[seq0 + i] : 0;
+            const int mine = l;
+            int tl, tp;
+            scan2(l, p, tl, tp, s_a, s_b);
+            if (mine)
+                copy_lits(o + c_pos + p, lit, rows, row, s1, c_ll + l, mine);
+            c_ll += tl;
+            c_pos += tp;
+        }
+        copy_lits_cta(o + c_pos, lit, rows, row, s1, c_ll, lit_len - c_ll);
+        __syncthreads();
+
+        // (b) matches, in order, by warp 0
+        if (warp == 0 && nseq > 0) {
+            int p = 0;
+            int nl = 0, nm = 0, no = 1;
+            if (lane < nseq) {
+                nl = ll[seq0 + lane];
+                nm = ml[seq0 + lane];
+                no = off[seq0 + lane];
+            }
+            for (int g = 0; g < nseq; g += 32) {
+                const int cl = nl, cm = nm, co = no;
+                const int gi = g + 32 + lane;
+                if (gi < nseq) {
+                    nl = ll[seq0 + gi];
+                    nm = ml[seq0 + gi];
+                    no = off[seq0 + gi];
+                }
+                const int cnt = min(32, nseq - g);
+                for (int k = 0; k < cnt; ++k) {
+                    const int l = __shfl_sync(0xffffffffu, cl, k);
+                    const int m = __shfl_sync(0xffffffffu, cm, k);
+                    const int d = __shfl_sync(0xffffffffu, co, k);
+                    p += l;
+                    uint8_t* dst = o + p;
+                    const uint8_t* src = dst - d;
+                    if (d >= m) {
+                        for (int j = lane; j < m; j += 32) dst[j] = src[j];
+                    } else {
+                        for (int j = lane; j < m; j += 32) dst[j] = src[j % d];
+                    }
+                    p += m;
+                    __syncwarp();
+                }
+            }
+        }
+        __syncthreads();
+
+        if (staged) {  // the staged block out, 16 bytes a store where aligned
             uint8_t* dst = out + blk[0];
-            for (long long j = t; j < out_len; j += 32) dst[j] = s_out[j];
-            __syncwarp();
+            int done = 0;
+            if (((uintptr_t)dst & 15) == 0) {
+                const int n16 = out_len >> 4;
+                for (int j = t; j < n16; j += kThreads)
+                    ((uint4*)dst)[j] = s_dyn[j];
+                done = n16 << 4;
+            }
+            for (int j = done + t; j < out_len; j += kThreads)
+                dst[j] = s_out[j];
+            __syncthreads();
         }
     }
 }
@@ -88,26 +228,27 @@ seq_exec(uint8_t* out, const uint8_t* __restrict__ lits,
 }  // namespace
 
 #ifdef __CUDACC__
-// C interface (ctypes). Pointers are device pointers: out (the frame's
-// output, direct pieces already in place), lits, the (total,) int32 ll, ml
-// and resolved offsets, blocks (nblk, 6) int64, lanes (nlanes, 2) int64
-// block ranges. staged_bytes > 0 stages each lane's single block of at most
-// that many bytes in shared memory. The launch goes on `stream`; the return
-// value is the first CUDA error of the call (0 when none).
-extern "C" int stenos_seq_exec(void* out, const void* lits, const void* ll,
-                               const void* ml, const void* off,
+// C interface (ctypes). Pointers are device pointers: out (the chunk's
+// output), lits (host-decoded literals), rows (K5's (nrows, 32768) output,
+// may be empty), the (total,) int32 ll, ml and resolved offsets, blocks
+// (nblk, 7) int64, lanes (nlanes, 3) int64 (block range, staged flag).
+// staged_bytes (> 0 when a lane is staged) is the dynamic shared memory,
+// at most 128 KiB. The launch goes on `stream`; the return value is the
+// first CUDA error of the call (0 when none).
+extern "C" int stenos_seq_exec(void* out, const void* lits, const void* rows,
+                               const void* ll, const void* ml, const void* off,
                                const void* blocks, const void* lanes,
                                long long nlanes, long long staged_bytes,
                                void* stream) {
     if (staged_bytes > kMaxStaged) return (int)cudaErrorInvalidValue;
-    const int shared = (int)staged_bytes;
+    const int shared = (int)((staged_bytes + 15) & ~15LL);
     cudaError_t err = cudaFuncSetAttribute(
         seq_exec, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxStaged);
     if (err != cudaSuccess) return (int)err;
-    seq_exec<<<(unsigned)nlanes, 32, shared, (cudaStream_t)stream>>>(
-        (uint8_t*)out, (const uint8_t*)lits, (const int*)ll, (const int*)ml,
-        (const int*)off, (const long long*)blocks, (const long long*)lanes,
-        shared > 0);
+    seq_exec<<<(unsigned)nlanes, kThreads, shared, (cudaStream_t)stream>>>(
+        (uint8_t*)out, (const uint8_t*)lits, (const uint8_t*)rows,
+        (const int*)ll, (const int*)ml, (const int*)off,
+        (const long long*)blocks, (const long long*)lanes);
     return (int)cudaGetLastError();
 }
 #endif

@@ -10,8 +10,10 @@ engine supplies the block streams and decodes them:
           budget checks (finish_block_stream).
   decode  decompress_frame_batched -> native parse_rows_batch over 64 MiB
           chunks -> ops.decode_kernel.decode_rows (the decode_rows kernel);
-          frames that are not all method BLOCK decode per superblock through
-          decode_block_stream, which launches the same kernel.
+          frames that are not all method BLOCK decode their BLOCK
+          superblocks one by one through decode_block_stream, which launches
+          the same kernel (their zstd superblocks go to
+          entropy.device_decode, 64 MiB a call: frame.decompress).
 
 and two device-resident paths with no host byte traffic:
 

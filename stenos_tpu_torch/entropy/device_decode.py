@@ -1,29 +1,35 @@
 """Decode of zstd entropy payloads on the card: the port of
-stenos_tpu/entropy/device_decode.py (decode_payload_device and its two
-tiers).
+stenos_tpu/entropy/device_decode.py (decode_payload_device), batched over
+payloads.
 
 Covers the payloads of methods ZSTD, TRANSPOSED_ZSTD and
 TRANSPOSED_DELTA_ZSTD, this package's frames and libzstd's alike.
+decode_payloads_device decodes a batch of payloads (the frame layer gathers
+64 MiB of superblocks) with one launch each of three kernels:
 
-1. Literals-only frames with a decode-anchor sidecar (sidecar.py), every
-   block a full 128 KiB: the host walks the headers only, and every
-   Huffman stream decodes through the anchored decode kernel (K5,
-   huff_decode_kernel.py).
-2. Everything else. Per block, the literals decode through K5 when the
-   sidecar has the block's anchors or a length-only native scan finds them
-   (stn_huf_anchors, the route of libzstd's frames), and through the
-   native huf_lits otherwise; K5's rows are patched into the literal and
-   output buffers on the card by torch slicing. Every sequences section
-   decodes through K7 (seqdec_kernel.py) after a host O(table) prep that
-   chains the FSE Repeat_Mode tables through the blocks in order; its raw
-   triples come back for the repeat-offset resolution (native
-   resolve_reps), chained across blocks from the registers [1, 4, 8]. The
-   sequences then execute through X1 (seq_exec.py): one lane per block
-   when no match reaches before its block, else one lane over the whole
-   frame in order.
+1. A host pass over each payload's headers and tables, in native code on a
+   few threads (stn_zstd_prep_batch: the parse of sidecar.py and
+   zstd_parse.py). Per compressed block, the literals are a job of the
+   anchored Huffman decode (K5, huff_decode_kernel.py) when they are 4
+   Huffman streams with anchors, from the decode-anchor sidecar or a
+   length-only scan (stn_huf_anchors, the route of libzstd's frames), and
+   host bytes otherwise (raw, RLE, native huf_lits); the sequences section
+   gets its FSE tables (stn_zstd_dtables, the Repeat_Mode tables chained
+   through the frame's blocks in order).
+2. One host-to-device copy of the packed inputs; K5 over every job's 4
+   streams, and K7 (seqdec_kernel.py) with one lane a payload: the raw
+   sequences, the repeat offsets resolved on the card (chained across the
+   payload's blocks from the registers [1, 4, 8]) and a summary of each
+   section.
+3. One small device-to-host copy of the summaries and error bits: the host
+   checks them and lays out every block of the batch.
+4. X1 (seq_exec.py) writes the blocks: literals from the host buffer or in
+   place from K5's rows, then the matches; one lane a block when no match of
+   the payload reaches before its block, else one lane over the payload's
+   blocks in order.
 
-A payload whose frame, block or section headers the parsers here reject
-returns None, and the frame layer asks host libzstd: the ladder of
+A payload whose frame, block or section headers the parsers here reject is
+None, and the frame layer asks host libzstd: the ladder of
 stenos.cpp:681-753. host_ladder counts those payloads, and the first of
 them warns. Once the headers parse, a K7 error flag and any other
 inconsistency (literals, repeat offsets, sizes, a match before the frame)
@@ -31,6 +37,9 @@ raise StenosError(ERROR_INVALID_INPUT), as host libzstd's failure does: a
 kernel fault never turns into host work.
 """
 
+import contextlib
+import os
+import time
 import warnings
 
 import numpy as np
@@ -39,268 +48,182 @@ import torch
 from .. import native
 from ..constants import ERROR_INVALID_INPUT
 from ..frame import StenosError
-from .huff_decode_kernel import decode_streams, decode_tables
-from .huff_kernel import WOUT_WORDS
+from .huff_decode_kernel import TABLE, decode_streams, decode_tables
+from .huff_kernel import STREAM, WOUT_WORDS
 from .seq_exec import execute
-from .seqdec_kernel import decode_sections, pack_sections, prep_section
-from .sidecar import split_sidecar
-from .zstd_parse import parse_frame
+from .seqdec_kernel import decode_sections
 
 BLOCK_MAX = 131072
 
 # payloads handed back to host libzstd (chip_smoke.py reads this)
 host_ladder = 0
 
+# seconds by step of the decode, summed over calls, when set to a dict
+# (chip_smoke.py does); each step then ends in a device synchronize
+timing = None
+
+# threads of the native host pass
+HOST_THREADS = min(8, os.cpu_count() or 1)
+_LADDER, _CORRUPT = 1, 2  # its payload statuses
+
+_pinned = None
+
+
+@contextlib.contextmanager
+def step(name, device):
+    """Adds the step's time to timing[name] when timing is a dict."""
+    if timing is None:
+        yield
+        return
+    t0 = time.perf_counter()
+    yield
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    timing[name] = timing.get(name, 0.0) + time.perf_counter() - t0
+
 
 def _corrupt():
     raise StenosError(ERROR_INVALID_INPUT)
 
 
-def _spans(payload, p: int, lit_end: int):
-    """The 4 stream byte spans of a Huffman literals section whose tree
-    description starts at p, or None."""
-    tb = payload[p]
-    p += 1 + (tb if tb < 128 else ((tb - 127) + 1) // 2)
-    if p + 6 > lit_end:
-        return None
-    j1, j2, j3 = (int.from_bytes(payload[p + 2 * i : p + 2 * i + 2],
-                                 "little") for i in range(3))
-    p += 6
-    s4 = lit_end - (p + j1 + j2 + j3)
-    if s4 <= 0:
-        return None
-    return [(p, j1), (p + j1, j2), (p + j1 + j2, j3), (p + j1 + j2 + j3, s4)]
+def _upload(arrays, device):
+    """One host-to-device copy of numpy arrays, each 16-byte aligned (from
+    a reused pinned buffer on a CUDA device): their device views."""
+    global _pinned
+    offs, pos = [], 0
+    for a in arrays:
+        offs.append(pos)
+        pos += -(-a.nbytes // 16) * 16
+    pos = max(pos, 16)
+    if device.type == "cuda":
+        if _pinned is None or _pinned.numel() < pos:
+            _pinned = torch.empty(pos, dtype=torch.uint8, pin_memory=True)
+        stage = _pinned[:pos]
+    else:
+        stage = torch.empty(pos, dtype=torch.uint8)
+    host = stage.numpy()
+    for a, o in zip(arrays, offs):
+        host[o : o + a.nbytes] = np.ascontiguousarray(a).reshape(-1).view(
+            np.uint8)
+    dev = stage.to(device, copy=True)
+    return [dev[o : o + a.nbytes].view(torch.from_numpy(a[:0]).dtype)
+            .view(a.shape) for a, o in zip(arrays, offs)]
 
 
-def _parse_device_block(payload: bytes, start: int, bsize: int):
-    """This package's literals-only block: 5-byte literals header (type 2,
-    size format 3), tree description, jump table, 4 streams, one zero
-    sequences byte. Returns (regenerated, [4 stream spans]) or None."""
-    end = start + bsize
-    h = int.from_bytes(payload[start : start + 5], "little")
-    if (h & 3) != 2 or ((h >> 2) & 3) != 3:
-        return None
-    lit_end = start + 5 + ((h >> 22) & 0x3FFFF)
-    if lit_end > end:
-        return None
-    spans = _spans(payload, start + 5, lit_end)
-    if spans is None or payload[lit_end:end] != b"\x00":
-        return None
-    return (h >> 4) & 0x3FFFF, spans
-
-
-def _stream_rows(payload, jobs, device):
-    """K5 over every job's 4 streams: jobs are (spans, (lens, anchors)).
-    Returns (4 * len(jobs), 32768) uint8 on device; each stream's valid
-    prefix is its own symbol count. The callers keep every stream within
-    K5's width (_fits)."""
-    ns = 4 * len(jobs)
-    eb = -(-max(max(ln for spans, _ in jobs for _, ln in spans), 1) // 4) * 4
-    sb = np.zeros((ns, eb), np.uint8)
-    anch = np.zeros((ns, 256), np.int32)
-    tabs = np.zeros((ns, 304), np.int32)
-    pv = np.frombuffer(payload, np.uint8)
-    for b, (spans, (lens, anchors)) in enumerate(jobs):
-        tab = decode_tables(np.asarray(lens)[None])
-        for s, (off, ln) in enumerate(spans):
-            sb[4 * b + s, :ln] = pv[off : off + ln]
-            anch[4 * b + s] = anchors[s]
-            tabs[4 * b + s] = tab[0]
-    return decode_streams(*(torch.from_numpy(a).to(device)
-                            for a in (sb, anch, tabs)))
-
-
-def _fits(spans):
-    """Whether every stream fits K5's input width (a valid stream of at
-    most 32 KiB symbols always does)."""
-    return all(ln <= 4 * WOUT_WORDS for _, ln in spans)
-
-
-def _patch(buf, rows, patches):
-    """Write each patch's literals, streams rows[rb : rb + 4] holding
-    ceil(n/4), ceil(n/4), ceil(n/4) and the rest of its n symbols, into
-    buf[off : off + n]."""
-    for rb, n, off in patches:
-        s1 = (n + 3) // 4
-        buf[off : off + n] = torch.cat([rows[rb, :s1], rows[rb + 1, :s1],
-                                        rows[rb + 2, :s1],
-                                        rows[rb + 3, : n - 3 * s1]])
-
-
-def _decode_literals_only(payload, dsize, blocks, entries, device):
-    """Tier 1: every block a full-size literals-only block with anchors."""
-    jobs = []
-    for spec, ent in zip(blocks, entries):
-        if ent is None or spec.btype != 2:
-            return None
-        pb = _parse_device_block(payload, spec.start, spec.size)
-        if pb is None or pb[0] != BLOCK_MAX or not _fits(pb[1]):
-            return None
-        jobs.append((pb[1], ent))
-    if len(jobs) * BLOCK_MAX != dsize:
-        return None
-    return _stream_rows(payload, jobs, device).reshape(dsize)
-
-
-def _decode_blocks(payload, dsize, blocks, entries, device):
-    """Tier 2 (see the module docstring). Returns (dsize,) uint8 on device
-    or None."""
-    lib = native.load()
-    pv = np.frombuffer(payload, np.uint8)
-    ctx = lib.zstd_ctx()
-    if entries is not None and len(entries) != len(blocks):
-        entries = None
-    # pass 1, headers: per block ("direct", size, host bytes or None, job)
-    # or ("seq", regenerated, host literals or None, job, prep)
-    recs, jobs = [], []
-    for bi, spec in enumerate(blocks):
-        if spec.btype in (0, 1):
-            piece = (pv[spec.start : spec.start + spec.size]
-                     if spec.btype == 0
-                     else np.full(spec.rsize, pv[spec.start], np.uint8))
-            if len(piece) > BLOCK_MAX:
-                return None
-            recs.append(("direct", len(piece), piece, None))
-            continue
-        lit = spec.lit
-        if lit.regenerated > BLOCK_MAX:
-            return None
-        ent = entries[bi] if entries is not None else None
-        huf4 = (lit.kind == "huf" and lit.four and not lit.treeless
-                and lit.regenerated >= 64)
-        if ent is None and huf4:
-            r = lib.huf_anchors(payload[lit.off : lit.off + lit.length],
-                                lit.regenerated, ctx)
-            if not isinstance(r, int):
-                ent = r
-        job = None
-        if ent is not None and huf4:
-            spans = _spans(payload, lit.off, lit.off + lit.length)
-            if spans is not None and _fits(spans):
-                jobs.append((spans, ent))
-                job = len(jobs) - 1
-        lits = None
-        if job is None:
-            if lit.kind == "raw":
-                lits = pv[lit.off : lit.off + lit.length]
-            elif lit.kind == "rle":
-                lits = np.full(lit.regenerated, lit.byte, np.uint8)
-            else:
-                lits = lib.huf_lits(payload[lit.off : lit.off + lit.length],
-                                    lit.four, lit.treeless, lit.regenerated,
-                                    ctx)
-                if isinstance(lits, int):
-                    if lit.treeless:
-                        return None  # its table came in a sidecar entry
-                    _corrupt()
-        prep = None
-        if not (spec.seq_len == 1 and payload[spec.seq_off] == 0):
-            prep = prep_section(payload[spec.seq_off : spec.seq_off
-                                        + spec.seq_len], ctx)
-            if isinstance(prep, int):
-                return None
-        if prep is None:  # no sequences: the literals are the block
-            recs.append(("direct", lit.regenerated, lits, job))
-        else:
-            recs.append(("seq", lit.regenerated, lits, job, prep))
-
-    seqs = [r for r in recs if r[0] == "seq"]
-    if seqs:
-        # K7 over every section, then the host resolves the repeat offsets
-        ll_d, ml_d, ofv_d, err = decode_sections(
-            *pack_sections([r[4] for r in seqs], device))
-        if err.any():
-            _corrupt()
-        ll, ml, ofv = (t.cpu().numpy() for t in (ll_d, ml_d, ofv_d))
-        reps = np.array([1, 4, 8], np.int64)
-        off = np.empty(len(ll), np.int64)
-        s0 = 0
-        for r in seqs:
-            n = r[4]["nseq"]
-            o = lib.resolve_reps(ll[s0 : s0 + n], ofv[s0 : s0 + n], reps)
-            if isinstance(o, int):
-                _corrupt()
-            off[s0 : s0 + n] = o
-            s0 += n
-    # pass 2: output sizes and offsets, the blocks X1 runs, host pieces
-    out_host = np.zeros(max(dsize, 1), np.uint8)
-    lit_total = sum(r[1] for r in seqs)
-    lit_host = np.zeros(max(lit_total, 1), np.uint8)
-    out_patch, lit_patch = [], []
-    xblocks = []
+def _layout(blocks, dsizes, meta, summ):
+    """X1's blocks (nblk, 7) and lanes (nlanes, 3) from the host pass's
+    blocks and K7's section summaries, after their checks; raises
+    StenosError on a corrupt payload (the first in order)."""
+    starts = np.cumsum([0] + list(dsizes[:-1])).tolist()
+    rows, lanes = [], []
+    o = b0 = 0
     gapped = True
-    out_off = lit_off = s0 = 0
-    for r in recs:
-        kind, size, host, job = r[:4]
-        if kind == "seq":
-            n = r[4]["nseq"]
-            sl = slice(s0, s0 + n)
-            out_len = size + int(ml[sl].sum())
-            if size < int(ll[sl].sum()) or out_len > BLOCK_MAX:
+    summ, meta = summ.tolist(), meta.tolist()
+    blocks = blocks.tolist()
+    for k, (pay, regen, lit_off, job, sec) in enumerate(blocks):
+        seq_off = nseq = 0
+        out_len = regen
+        if sec >= 0:
+            sum_ll, sum_ml, lo_src, err = summ[sec]
+            if err or regen < sum_ll:
                 _corrupt()
-            # match sources, relative to the block start
-            src = np.cumsum(ll[sl] + ml[sl].astype(np.int64)) - ml[sl] \
-                - off[sl]
-            if len(src) and int(src.min()) + out_off < 0:
-                _corrupt()  # an offset reaches before the frame
-            gapped &= not len(src) or int(src.min()) >= 0
-            xblocks.append((out_off, out_len, lit_off, size, s0, n))
-            dst, dst_patch, at = lit_host, lit_patch, lit_off
-            s0 += n
-            lit_off += size
-        else:
-            out_len = size
-            dst, dst_patch, at = out_host, out_patch, out_off
-        if out_off + out_len > dsize:
+            out_len = regen + sum_ml
+            if out_len > BLOCK_MAX or lo_src + o < 0:
+                _corrupt()  # too long, or a match before the frame
+            gapped &= lo_src >= 0
+            nseq, seq_off = meta[sec][3], meta[sec][4]
+        if o + out_len > dsizes[pay]:
             _corrupt()
-        if job is None:
-            dst[at : at + size] = host
-        else:
-            dst_patch.append((4 * job, size, at))
-        out_off += out_len
-    if out_off != dsize:
-        _corrupt()
-    out = torch.from_numpy(out_host[:dsize]).to(device)
-    lits_d = torch.from_numpy(lit_host[:lit_total]).to(device)
-    if jobs:
-        rows = _stream_rows(payload, jobs, device)
-        _patch(out, rows, out_patch)
-        _patch(lits_d, rows, lit_patch)
-    if not xblocks:
-        return out
-    lanes = ([(b, b + 1) for b in range(len(xblocks))] if gapped
-             else [(0, len(xblocks))])
-    return execute(out, lits_d, ll_d, ml_d,
-                   torch.from_numpy(off.astype(np.int32)).to(device),
-                   torch.tensor(xblocks, dtype=torch.int64, device=device),
-                   torch.tensor(lanes, dtype=torch.int64, device=device),
-                   staged=gapped)
+        rows.append((starts[pay] + o, out_len, lit_off, regen, seq_off, nseq,
+                     -1 if job < 0 else 4 * job))
+        o += out_len
+        if k + 1 == len(blocks) or blocks[k + 1][0] != pay:  # its last block
+            if o != dsizes[pay]:
+                _corrupt()
+            if gapped:
+                lanes += [(b, b + 1, int(rows[b][5] > 0))
+                          for b in range(b0, k + 1)]
+            else:
+                lanes.append((b0, k + 1, 0))
+            o, b0, gapped = 0, k + 1, True
+    return (np.asarray(rows, np.int64).reshape(-1, 7),
+            np.asarray(lanes, np.int64).reshape(-1, 3))
+
+
+def _decode(buf, dsizes, prep, out, device):
+    """Steps 2-4 of the module docstring: prep is the host pass's blocks,
+    K5 rows, anchors and lens, K7 meta and tables, host literals."""
+    blocks, rows, anch, lens, meta, tabs, lits = prep
+    secs = blocks[blocks[:, 4] >= 0, 0]
+    lane_sizes = np.bincount(secs, minlength=len(dsizes))
+    lane_sizes = lane_sizes[lane_sizes > 0]
+    ends = np.cumsum(lane_sizes)
+    lanes7 = np.stack([ends - lane_sizes, ends], 1).astype(np.int64)
+    k5 = [rows, anch, np.repeat(decode_tables(lens), 4, axis=0) if len(lens)
+          else np.zeros((0, TABLE), np.int32)]
+    with step("h2d", device):
+        dev = _upload([*k5, buf, meta, tabs, lanes7,
+                       np.append(lits, np.uint8(0))], device)
+    with step("k5", device):
+        rows_d = (decode_streams(*dev[:3]) if len(rows) else
+                  torch.empty((0, STREAM), dtype=torch.uint8, device=device))
+    if len(meta):
+        with step("k7", device):
+            ll, ml, _, off, summ = decode_sections(*dev[3:7])
+        with step("d2h_summaries", device):
+            summ = summ.cpu().numpy()
+    else:
+        ll = ml = off = torch.empty(0, dtype=torch.int32, device=device)
+        summ = np.zeros((0, 4), np.int64)
+    with step("layout", device):
+        xblocks, xlanes = _layout(blocks, dsizes, meta, summ)
+        blocks_d, lanes_d = _upload([xblocks, xlanes], device)
+    with step("x1", device):
+        execute(out, dev[7], rows_d, ll, ml, off, blocks_d, lanes_d)
+
+
+def decode_payloads_device(payloads, dsizes, device="cuda", out=None):
+    """payloads: method 2/3/4/5 superblock payloads (a zstd frame and an
+    optional sidecar each) of dsizes bytes. Returns, per payload, its
+    (dsize,) uint8 slice of one device output (out, when given: a
+    (sum(dsizes),) uint8 tensor, payload i at the sum of the dsizes before
+    it), or None when its headers are not device-decodable (counted in
+    host_ladder; the caller asks host libzstd, and its part of the output is
+    left as it was). Raises StenosError when a payload whose headers parse
+    is corrupt: the first such payload in order."""
+    global host_ladder
+    device = torch.device(device)
+    dsizes = [int(d) for d in dsizes]
+    lens = [len(p) for p in payloads]
+    offs = np.cumsum([0] + lens[:-1])
+    buf = np.zeros(max(4, -(-sum(lens) // 4) * 4), np.uint8)
+    for p, o, n in zip(payloads, offs, lens):
+        buf[o : o + n] = np.frombuffer(p, np.uint8)
+    with step("host_pass", device):
+        status, *prep = native.load().zstd_prep_batch(
+            buf, offs, lens, dsizes, HOST_THREADS, 4 * WOUT_WORDS)
+    for st in status.tolist():
+        if st == _CORRUPT:
+            _corrupt()
+        if st == _LADDER:
+            if not host_ladder:
+                warnings.warn("a zstd payload the device decode cannot "
+                              "parse goes to host libzstd "
+                              "(device_decode.host_ladder counts them)",
+                              RuntimeWarning, stacklevel=3)
+            host_ladder += 1
+    if out is None:
+        out = torch.empty(sum(dsizes), dtype=torch.uint8, device=device)
+    if len(prep[0]):
+        _decode(buf, dsizes, prep, out, device)
+    res, o = [], 0
+    for st, d in zip(status.tolist(), dsizes):
+        res.append(None if st else out[o : o + d])
+        o += d
+    return res
 
 
 def decode_payload_device(payload, dsize: int, device="cuda"):
-    """payload: a method 2/3/4/5 superblock payload (a zstd frame and an
-    optional sidecar). Returns (dsize,) uint8 on device, or None when its
-    headers are not device-decodable (counted in host_ladder; the caller
-    asks host libzstd). Raises StenosError when a payload whose headers
-    parse is corrupt."""
-    global host_ladder
-    device = torch.device(device)
-    payload = bytes(payload)
-    frame_end, entries = split_sidecar(payload)
-    parsed = parse_frame(payload, frame_end)
-    out = None
-    if parsed is not None:
-        content, blocks, _ = parsed
-        if content is None or content == dsize:
-            if entries is not None and len(blocks) == len(entries):
-                out = _decode_literals_only(payload, dsize, blocks, entries,
-                                            device)
-            if out is None:
-                out = _decode_blocks(payload, dsize, blocks, entries, device)
-    if out is None:
-        if not host_ladder:
-            warnings.warn("a zstd payload the device decode cannot parse "
-                          "goes to host libzstd (device_decode.host_ladder "
-                          "counts them)", RuntimeWarning, stacklevel=2)
-        host_ladder += 1
-    return out
+    """One payload (see decode_payloads_device): (dsize,) uint8 on device or
+    None (the host ladder)."""
+    return decode_payloads_device([payload], [dsize], device)[0]

@@ -1,26 +1,33 @@
 """zstd sequence execution: the CUDA kernel (X1) and its plain torch
 version.
 
-execute(out, lits, ll, ml, off, blocks, lanes, staged) writes the bytes of
-every sequence-bearing block of a frame into out, in place: per block, its
-sequences (ll literals, then ml bytes copied from off bytes back) and then
-its trailing literals. A CUDA tensor goes through csrc/seq_exec.cu, a
-kernel of the port alone: in stenos_tpu the work is XLA glue
-(stenos_tpu/entropy/seq_exec.py::run_programs, no Pallas), whose round loop
-would cost two torch launches a round here. A CPU tensor goes through
-execute_plain, the JAX package's algorithm: the native W-byte copy-op
-programs (stn_seq_ops) run in rounds of one gather and one scatter, op r of
-every lane a round, each op writing only its valid bytes (up to the next
-op's destination) so no lane needs a gap for overruns.
+execute(out, lits, rows, ll, ml, off, blocks, lanes) writes the bytes of
+blocks of zstd frames into out, in place: per block, its sequences (ll
+literals, then ml bytes copied from off bytes back) and then its trailing
+literals; a block without sequences is its literals. A CUDA tensor goes
+through csrc/seq_exec.cu, a kernel of the port alone: in stenos_tpu the
+work is XLA glue (stenos_tpu/entropy/seq_exec.py::run_programs, no Pallas),
+whose round loop would cost two torch launches a round here. A CPU tensor
+goes through execute_plain, the JAX package's algorithm: the literals
+gathered into one buffer, then the native W-byte copy-op programs
+(stn_seq_ops) run in rounds of one gather and one scatter, op r of every
+lane a round, each op writing only its valid bytes (up to the next op's
+destination) so no lane needs a gap for overruns.
 
-  out    (dsize,) uint8  the frame's output; the other blocks already placed
-  lits   (nlits,) uint8  the literals of the sequence-bearing blocks
+  out    (dsize,) uint8  the output of one or more frames
+  lits   (nlits,) uint8  literals decoded on the host
+  rows   (nrows, 32768) uint8  the anchored Huffman decode's output (K5):
+                         a block's literals are its 4 stream rows, ceil(n/4)
+                         symbols each and the rest in the last
   ll, ml, off (total,) int32  sequences, offsets resolved (> 0)
-  blocks (nblk, 6) int64  out_off, out_len, lit_off, lit_len, seq_off, nseq
-  lanes  (nlanes, 2) int64  ranges of blocks, run in order, lanes in
-                            parallel
-  staged  every lane is one block of at most 128 KiB whose matches stay
-          inside it (the kernel builds it in shared memory)
+  blocks (nblk, 7) int64  out_off, out_len, lit_off, lit_len, seq_off,
+                          nseq, row: the literals are lits[lit_off:] when
+                          row is -1, else rows[row : row + 4]
+  lanes  (nlanes, 3) int64  ranges of blocks, run in order, lanes in
+                          parallel, and a staged flag: the lane is one block
+                          of at most 128 KiB whose matches stay inside it
+                          (the kernel builds it in shared memory). Matches
+                          of other lanes may read earlier blocks of the lane.
 """
 
 import ctypes
@@ -33,15 +40,16 @@ from ..ops import _cuda
 
 W = 1024          # bytes an op copies in the plain version's rounds
 MAX_STAGED = 131072
-BLOCK_COLS = 6
+BLOCK_COLS = 7
+ROW_BYTES = 32768
 
 # kernel launches (chip_smoke.py reads this)
 launches = 0
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
-_SIGNATURES = {"stenos_seq_exec": [_P, _P, _P, _P, _P, _P, _P, _LL, _LL,
-                                   _P]}
+_SIGNATURES = {"stenos_seq_exec": [_P, _P, _P, _P, _P, _P, _P, _P, _LL,
+                                   _LL, _P]}
 
 
 def _programs(ll, ml, off, blocks, lanes, lit_base):
@@ -52,7 +60,8 @@ def _programs(ll, ml, off, blocks, lanes, lit_base):
     for b0, b1 in lanes:
         parts = []
         for b in range(b0, b1):
-            o_off, o_len, l_off, l_len, s_off, n = (int(v) for v in blocks[b])
+            o_off, o_len, l_off, l_len, s_off, n = (int(v)
+                                                   for v in blocks[b, :6])
             sl = slice(s_off, s_off + n)
             trailing = l_len - int(ll[sl].sum())
             ops = lib.seq_ops(ll[sl], ml[sl], off[sl].astype(np.int64),
@@ -69,11 +78,29 @@ def _programs(ll, ml, off, blocks, lanes, lit_base):
     return progs
 
 
-def execute_plain(out, lits, ll, ml, off, blocks, lanes, staged=False):
+def gather_literals(lits, rows, blocks):
+    """(lits, blocks) with every block's literals in the one buffer: the
+    literals of row-sourced blocks, their 4 stream rows cut to their
+    symbol counts, appended to lits (their row set to -1)."""
+    b = blocks.cpu().numpy().copy()
+    parts, pos = [lits], lits.numel()
+    for i in np.nonzero(b[:, 6] >= 0)[0]:
+        n, r = int(b[i, 3]), int(b[i, 6])
+        s1 = (n + 3) // 4
+        parts += [rows[r, :s1], rows[r + 1, :s1], rows[r + 2, :s1],
+                  rows[r + 3, : n - 3 * s1]]
+        b[i, 2], b[i, 6] = pos, -1
+        pos += n
+    return torch.cat(parts), torch.from_numpy(b).to(blocks.device)
+
+
+def execute_plain(out, lits, rows, ll, ml, off, blocks, lanes):
     """Plain torch version (see the module docstring); updates out in place
-    and returns it. staged changes nothing here."""
+    and returns it. The staged flags change nothing here."""
     dev = out.device
-    progs = _programs(*(t.cpu().numpy() for t in (ll, ml, off, blocks, lanes)),
+    lits, blocks = gather_literals(lits, rows, blocks)
+    progs = _programs(*(t.cpu().numpy() for t in (ll, ml, off, blocks,
+                                                  lanes[:, :2])),
                       lit_base=out.numel())
     L = len(progs)
     R = max((len(p) for p in progs), default=0)
@@ -95,13 +122,13 @@ def execute_plain(out, lits, ll, ml, off, blocks, lanes, staged=False):
     return out
 
 
-def execute(out, lits, ll, ml, off, blocks, lanes, staged=False):
+def execute(out, lits, rows, ll, ml, off, blocks, lanes):
     """The wrapper: the CUDA kernel for CUDA tensors, the plain version for
     CPU tensors (see the module docstring). Updates out in place and
     returns it."""
     global launches
     if out.device.type == "cpu":
-        return execute_plain(out, lits, ll, ml, off, blocks, lanes, staged)
+        return execute_plain(out, lits, rows, ll, ml, off, blocks, lanes)
     dev = out.device
     n = ll.numel()
     nblk = blocks.shape[0]
@@ -109,10 +136,11 @@ def execute(out, lits, ll, ml, off, blocks, lanes, staged=False):
     for name, t, dtype, shape in (
             ("out", out, torch.uint8, (out.numel(),)),
             ("lits", lits, torch.uint8, (lits.numel(),)),
+            ("rows", rows, torch.uint8, (rows.shape[0], ROW_BYTES)),
             ("ll", ll, torch.int32, (n,)), ("ml", ml, torch.int32, (n,)),
             ("off", off, torch.int32, (n,)),
             ("blocks", blocks, torch.int64, (nblk, BLOCK_COLS)),
-            ("lanes", lanes, torch.int64, (nl, 2))):
+            ("lanes", lanes, torch.int64, (nl, 3))):
         if (t.device != dev or t.dtype != dtype or tuple(t.shape) != shape
                 or not t.is_contiguous()):
             raise ValueError(f"seq_exec: {name} must be a contiguous {shape} "
@@ -120,17 +148,18 @@ def execute(out, lits, ll, ml, off, blocks, lanes, staged=False):
     if dev.type != "cuda":
         raise ValueError(f"seq_exec: unsupported device {dev}")
     staged_bytes = 0
-    if staged:
-        staged_bytes = int(blocks[:, 1].max()) if nblk else 0
+    staged = lanes[:, 2] != 0
+    if bool(staged.any()):
+        staged_bytes = int(blocks[lanes[staged, 0], 1].max())
         if staged_bytes > MAX_STAGED:
             raise ValueError(f"seq_exec: a staged block of {staged_bytes} "
                              f"bytes exceeds {MAX_STAGED}")
     if nl:
         lib = _cuda.load("seq_exec", _SIGNATURES)
         _cuda.check(lib.stenos_seq_exec(
-            out.data_ptr(), lits.data_ptr(), ll.data_ptr(), ml.data_ptr(),
-            off.data_ptr(), blocks.data_ptr(), lanes.data_ptr(), nl,
-            staged_bytes, torch.cuda.current_stream(dev).cuda_stream),
-            "seq_exec")
+            out.data_ptr(), lits.data_ptr(), rows.data_ptr(), ll.data_ptr(),
+            ml.data_ptr(), off.data_ptr(), blocks.data_ptr(),
+            lanes.data_ptr(), nl, staged_bytes,
+            torch.cuda.current_stream(dev).cuda_stream), "seq_exec")
         launches += 1
     return out

@@ -1,27 +1,37 @@
 """zstd sequence-section FSE decode: the CUDA kernel (K7) and its plain torch
 version.
 
-decode_sections(stream_bytes, meta, tabs) walks each section's backward
-bitstream with its three FSE state machines and returns the RAW
-(ll, ml, offset_value) of every sequence; repeat offsets are resolved on the
-host (native resolve_reps), chained across the blocks of a frame. A CUDA
-tensor goes through csrc/seq_decode.cu (it replaces the TPU kernel
+decode_sections(stream_bytes, meta, tabs, lanes) walks each section's
+backward bitstream with its three FSE state machines and returns the RAW
+(ll, ml, offset_value) of every sequence, the resolved offsets and a summary
+of every section. A lane is the sections of one zstd frame, in order: the
+repeat-offset registers start at [1, 4, 8] for each lane and chain across
+its sections (native stn_resolve_reps, bit for bit). A CUDA tensor goes
+through csrc/seq_decode.cu (it replaces the TPU kernel
 stenos_tpu/entropy/seqdec_pallas.py::make_seqdec_kernel), a CPU tensor
-through decode_sections_plain, vectorised over sections with a loop over
-sequences. Semantics are the TPU kernel's: a read of k bits at cursor bp
-yields bits [bp - k, bp), zeros below bit 0 and past the stream; error bit 1
-marks an OF code over 30, bit 2 a stream not consumed exactly. The TPU
-kernel's lanes of 128 sections, chunks of 512 sequences and stream-word
-buckets were its VMEM shapes; here any section of a 128 KiB block decodes.
+through decode_sections_plain, vectorised over sections (then lanes) with a
+loop over sequences. Semantics are the TPU kernel's: a read of k bits at
+cursor bp yields bits [bp - k, bp), zeros below bit 0 and past the stream;
+error bit 1 marks an OF code over 30, bit 2 a stream not consumed exactly,
+and bit 4 (new here) a repeat offset that resolves to 0 or less (the
+registers take it and the walk goes on). The TPU kernel's lanes of 128
+sections, chunks of 512 sequences and stream-word buckets were its VMEM
+shapes; here any section of a 128 KiB block decodes.
 
-  stream_bytes (nbytes,) uint8  the sections' bitstreams, concatenated
+  stream_bytes (nbytes,) uint8  the sections' bitstreams, concatenated;
+                          4-byte aligned, nbytes % 4 == 0 (pack_sections)
   meta  (nsec, 8) int64   stream_off, stream_len, bp0 (initial cursor, bits),
                           nseq, seq_off (into the outputs), tl_ll, tl_of,
                           tl_ml
   tabs  (nsec, 1536) int32  decode tables LL | OF | ML, 512 states each,
                           sym | nb << 8 | base << 16 (native zstd_dtables)
-  -> ll, ml, ofv (total,) int32, total = sum of nseq; err (nsec,) int32,
-     all on the input's device
+  lanes (nlanes, 2) int64  section ranges [s0, s1) that split [0, nsec) in
+                          order
+  -> ll, ml, ofv, off (total,) int32, total = sum of nseq; summ (nsec, 4)
+     int64: sum ll, sum ml, the lowest match source (sum of the lls up to
+     and with the sequence's, plus the mls before it, minus its offset:
+     relative to the block start; 0 without sequences) and the error bits.
+     All on the input's device.
 """
 
 import ctypes
@@ -34,6 +44,8 @@ from ..ops import _cuda
 
 STATES = 512
 META = 8
+SUMM = 4
+ERR_REPEAT = 4
 
 # code -> (baseline, extra bits), RFC 8878 §3.1.1.3.2.1.1
 LL_BASE = [0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15,
@@ -52,8 +64,12 @@ ML_BITS = [0] * 32 + [1, 1, 1, 1, 2, 2, 3, 3, 4, 4, 5, 7, 8, 9, 10, 11,
 launches = 0
 
 _P = ctypes.c_void_p
-_SIGNATURES = {"stenos_seq_decode": [_P, _P, _P, ctypes.c_longlong, _P, _P,
-                                     _P, _P, _P]}
+_SIGNATURES = {"stenos_seq_decode": [_P, _P, _P, _P, ctypes.c_longlong, _P,
+                                     _P, _P, _P, _P, ctypes.c_int, _P]}
+
+# the kernel's stream source: 1 stages the stream in shared memory, 0 reads
+# aligned words from global memory (csrc/seq_decode.cu)
+STAGED = 1
 
 
 def prep_section(sec: bytes, ctx):
@@ -72,9 +88,11 @@ def prep_section(sec: bytes, ctx):
             "tls": (int(meta[3]), int(meta[4]), int(meta[5])), "tab": tab}
 
 
-def pack_sections(preps, device):
-    """prep_section dicts -> (stream_bytes, meta, tabs) on device, the
-    sequences of section i at [seq_off_i, seq_off_i + nseq_i)."""
+def pack_sections_np(preps, lane_sizes=None):
+    """prep_section dicts -> (stream_bytes, meta, tabs, lanes) as numpy, the
+    sequences of section i at [seq_off_i, seq_off_i + nseq_i); lane_sizes:
+    sections a lane, in order (default: one lane of all). The stream buffer
+    is padded to a multiple of 4 bytes."""
     n = len(preps)
     meta = np.zeros((n, META), np.int64)
     tabs = np.zeros((n, 3 * STATES), np.int32)
@@ -84,11 +102,18 @@ def pack_sections(preps, device):
         tabs[i] = p["tab"]
         off += len(p["stream"])
         seq += p["nseq"]
-    buf = np.frombuffer(b"".join(p["stream"] for p in preps) or b"\0",
-                        np.uint8)
-    return (torch.from_numpy(buf.copy()).to(device),
-            torch.from_numpy(meta).to(device),
-            torch.from_numpy(tabs).to(device))
+    buf = np.zeros(max(4, -(-off // 4) * 4), np.uint8)
+    buf[:off] = np.frombuffer(b"".join(p["stream"] for p in preps), np.uint8)
+    sizes = [n] if lane_sizes is None else list(lane_sizes)
+    ends = np.cumsum(sizes, dtype=np.int64)
+    lanes = np.stack([ends - sizes, ends], 1).astype(np.int64)
+    return buf, meta, tabs, lanes.reshape(-1, 2)
+
+
+def pack_sections(preps, device, lane_sizes=None):
+    """pack_sections_np's arrays as tensors on device."""
+    return tuple(torch.from_numpy(a.copy()).to(device)
+                 for a in pack_sections_np(preps, lane_sizes))
 
 
 def _windows(stream_bytes, soff, slen):
@@ -111,10 +136,10 @@ def _windows(stream_bytes, soff, slen):
     return win
 
 
-def decode_sections_plain(stream_bytes, meta, tabs):
-    """Plain torch version: every section's state walk side by side, one
-    step a sequence (see the module docstring); a read of k bits at cursor
-    bp is entry bp - k + 32 of the section's 32-bit windows, masked."""
+def _walk_plain(stream_bytes, meta, tabs):
+    """Every section's state walk side by side, one step a sequence: the raw
+    (ll, ml, ofv) and the error bits 1 and 2. A read of k bits at cursor bp
+    is entry bp - k + 32 of the section's 32-bit windows, masked."""
     dev = stream_bytes.device
     n = meta.shape[0]
     total = int(meta[:, 3].sum()) if n else 0
@@ -181,33 +206,110 @@ def decode_sections_plain(stream_bytes, meta, tabs):
     return ll_o, ml_o, of_o, err.to(torch.int32)
 
 
-def decode_sections(stream_bytes, meta, tabs):
+def _resolve_plain(ll, ofv, meta, lanes):
+    """Repeat offsets, the lanes side by side, one step a sequence of the
+    lane (stn_resolve_reps): (off (total,) int64, the sequences whose offset
+    is 0 or less)."""
+    dev = ll.device
+    m = meta.cpu().numpy()
+    nseq, seq_off = m[:, 3], m[:, 4]
+    idx = []  # per lane, its sequences in order
+    for s0, s1 in lanes.cpu().numpy():
+        idx.append(np.concatenate(
+            [np.arange(seq_off[s], seq_off[s] + nseq[s])
+             for s in range(s0, s1)] + [np.zeros(0, np.int64)]))
+    L = max((len(i) for i in idx), default=0)
+    g = np.zeros((len(idx), max(L, 1)), np.int64)
+    valid = np.zeros_like(g, bool)
+    for k, i in enumerate(idx):
+        g[k, : len(i)] = i
+        valid[k, : len(i)] = True
+    g, valid = torch.from_numpy(g).to(dev), torch.from_numpy(valid).to(dev)
+    n = len(idx)
+    r0, r1, r2 = (torch.full((n,), v, dtype=torch.int64, device=dev)
+                  for v in (1, 4, 8))
+    off = torch.zeros(ll.numel(), dtype=torch.int64, device=dev)
+    bad = torch.zeros(ll.numel(), dtype=torch.bool, device=dev)
+    for t in range(L):
+        v, q = valid[:, t], g[:, t]
+        ov = ofv[q].long()
+        ix = ov - 1 + (ll[q] == 0).long()
+        new = ov > 3
+        o = torch.where(new, ov - 3, torch.where(
+            ix == 0, r0, torch.where(ix == 1, r1, torch.where(
+                ix == 2, r2, r0 - 1))))
+        keep0 = ~new & (ix == 0)  # rep 1: the registers stay
+        n1 = torch.where(keep0, r1, r0)
+        n2 = torch.where(~new & (ix <= 1), r2, r1)
+        r0, r1, r2 = (torch.where(v, a, b) for a, b in
+                      ((o, r0), (n1, r1), (n2, r2)))
+        off[q[v]] = o[v]
+        bad[q[v]] = o[v] <= 0
+    return off, bad
+
+
+def decode_sections_plain(stream_bytes, meta, tabs, lanes):
+    """Plain torch version (see the module docstring): the raw walks, then
+    the repeat offsets lane by lane and the section summaries."""
+    dev = stream_bytes.device
+    n = meta.shape[0]
+    ll, ml, ofv, err = _walk_plain(stream_bytes, meta, tabs)
+    off, bad = _resolve_plain(ll, ofv, meta, lanes)
+    summ = torch.zeros((n, SUMM), dtype=torch.int64, device=dev)
+    if ll.numel():
+        nseq, seq_off = meta[:, 3], meta[:, 4]
+        sec = torch.repeat_interleave(torch.arange(n, device=dev), nseq)
+        start = torch.repeat_interleave(seq_off, nseq)
+        first = torch.repeat_interleave(torch.cumsum(nseq, 0) - nseq, nseq)
+        q = start + torch.arange(sec.numel(), device=dev) - first
+        lq, mq, oq = ll[q].long(), ml[q].long(), off[q]
+        c = torch.cumsum(lq + mq, 0)
+        c0 = (c - lq - mq)[first]  # the sums before the section
+        src = c - c0 - mq - oq  # relative to the block start
+        summ[:, 0].index_add_(0, sec, lq)
+        summ[:, 1].index_add_(0, sec, mq)
+        summ[:, 2].scatter_reduce_(0, sec, src, "amin", include_self=False)
+        err = err.long() | torch.zeros(n, dtype=torch.int64,
+                                       device=dev).index_add_(
+            0, sec, bad[q].long()).clamp(max=1) * ERR_REPEAT
+    summ[:, 3] = err
+    return ll, ml, ofv, off.to(torch.int32), summ
+
+
+def decode_sections(stream_bytes, meta, tabs, lanes):
     """The wrapper: the CUDA kernel for CUDA tensors, the plain version for
     CPU tensors (see the module docstring)."""
     global launches
     if stream_bytes.device.type == "cpu":
-        return decode_sections_plain(stream_bytes, meta, tabs)
+        return decode_sections_plain(stream_bytes, meta, tabs, lanes)
     dev = stream_bytes.device
     n = meta.shape[0]
+    nl = lanes.shape[0]
     for name, t, dtype, shape in (
-            ("stream_bytes", stream_bytes, torch.uint8, (stream_bytes.numel(),)),
+            ("stream_bytes", stream_bytes, torch.uint8,
+             (stream_bytes.numel(),)),
             ("meta", meta, torch.int64, (n, META)),
-            ("tabs", tabs, torch.int32, (n, 3 * STATES))):
+            ("tabs", tabs, torch.int32, (n, 3 * STATES)),
+            ("lanes", lanes, torch.int64, (nl, 2))):
         if (t.device != dev or t.dtype != dtype or tuple(t.shape) != shape
                 or not t.is_contiguous()):
             raise ValueError(f"decode_sections: {name} must be a contiguous "
                              f"{shape} {dtype} tensor on {dev}")
-    if dev.type != "cuda":
-        raise ValueError(f"decode_sections: unsupported device {dev}")
+    if (dev.type != "cuda" or stream_bytes.numel() % 4
+            or stream_bytes.data_ptr() % 4):
+        raise ValueError(f"decode_sections: unsupported device {dev}, or a "
+                         "stream buffer that is not 4-byte aligned and a "
+                         "multiple of 4 bytes")
     total = int(meta[:, 3].sum()) if n else 0
     outs = [torch.empty(total, dtype=torch.int32, device=dev)
-            for _ in range(3)]
-    err = torch.empty(n, dtype=torch.int32, device=dev)
-    if n:
+            for _ in range(4)]
+    summ = torch.empty((n, SUMM), dtype=torch.int64, device=dev)
+    if nl:
         lib = _cuda.load("seq_decode", _SIGNATURES)
         _cuda.check(lib.stenos_seq_decode(
-            stream_bytes.data_ptr(), meta.data_ptr(), tabs.data_ptr(), n,
-            *(o.data_ptr() for o in outs), err.data_ptr(),
+            stream_bytes.data_ptr(), meta.data_ptr(), tabs.data_ptr(),
+            lanes.data_ptr(), nl, *(o.data_ptr() for o in outs),
+            summ.data_ptr(), STAGED,
             torch.cuda.current_stream(dev).cuda_stream), "seq_decode")
         launches += 1
-    return (*outs, err)
+    return (*outs, summ)

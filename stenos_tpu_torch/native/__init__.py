@@ -10,7 +10,7 @@ parse_rows, parse_rows_batch and block_decode (the block codec),
 huff_lengths (the device container's entropy stage), and for the zstd
 entropy stage: huff_tree_descs, matchiness, match_parse, encode_block and
 recode_reps_enc (encode); zstd_ctx, zstd_dtables, resolve_reps, huf_lits,
-huf_anchors and seq_ops (decode).
+huf_anchors, seq_ops and zstd_prep_batch (decode).
 """
 
 import ctypes
@@ -22,7 +22,7 @@ from .._build import cached_lib
 
 _SRC = os.path.join(os.path.dirname(__file__), "src", "stenos_native.cpp")
 _FLAGS = ["-O3", "-march=native", "-std=c++17", "-DNDEBUG", "-shared",
-          "-fPIC", "-fvisibility=hidden"]
+          "-fPIC", "-fvisibility=hidden", "-pthread"]
 
 _P = ctypes.c_void_p
 _SZ = ctypes.c_size_t
@@ -67,6 +67,14 @@ class _Native:
             fn = getattr(cdll, name)
             fn.restype = _SSZ
             fn.argtypes = args
+        cdll.stn_zstd_prep_batch.restype = _P
+        cdll.stn_zstd_prep_batch.argtypes = [_P, _P, _P, _P, _SZ, _I, _I64,
+                                             _P, _P]
+        cdll.stn_zstd_prep_fetch.restype = None
+        cdll.stn_zstd_prep_fetch.argtypes = [_P, _P, _P, _P, _P, _I64, _P,
+                                             _P, _P, _P, _P]
+        cdll.stn_zstd_prep_free.restype = None
+        cdll.stn_zstd_prep_free.argtypes = [_P]
         cdll.stn_matchiness.restype = ctypes.c_double
         cdll.stn_matchiness.argtypes = [_P, _SZ, _SZ]
 
@@ -292,6 +300,45 @@ class _Native:
         if r < 0:
             return int(r)
         return ops[:r]
+
+    def zstd_prep_batch(self, buf, offs, lens, dsizes, threads: int,
+                        max_stream: int):
+        """Host pass of the batched device zstd decode over the payloads
+        buf[offs[i] : offs[i] + lens[i]] (dsizes[i] bytes each), on
+        `threads` threads. Returns (status (n,) int32: 0 ok, 1 the host
+        ladder, 2 corrupt; then, over the ok payloads in order: blocks
+        (nblk, 5) int64 [payload, regenerated, host literal offset, job or
+        -1, section or -1], rows (4 njobs, width) uint8 (each K5 job's 4
+        streams, zero-padded to the longest, a multiple of 4), anchors
+        (4 njobs, 256) int32, lens (njobs, 256) uint8, meta (nsec, 8) int64
+        (K7's, stream offsets into buf), tabs (nsec, 1536) int32 and the
+        host literals (nlits,) uint8). buf: a uint8 array."""
+        offs = np.ascontiguousarray(offs, np.int64)
+        lens = np.ascontiguousarray(lens, np.int64)
+        dsizes = np.ascontiguousarray(dsizes, np.int64)
+        n = len(offs)
+        status = np.zeros(n, np.int32)
+        counts = np.zeros(5, np.int64)
+        h = self._lib.stn_zstd_prep_batch(_ptr(buf), _ptr(offs), _ptr(lens),
+                                          _ptr(dsizes), n, threads,
+                                          max_stream, _ptr(status),
+                                          _ptr(counts))
+        try:
+            nb, nj, ns, nl, longest = (int(c) for c in counts)
+            width = max(4, -(-longest // 4) * 4)
+            out = (np.empty((nb, 5), np.int64),
+                   np.empty((4 * nj, width), np.uint8),
+                   np.empty((4 * nj, 256), np.int32),
+                   np.empty((nj, 256), np.uint8),
+                   np.empty((ns, 8), np.int64),
+                   np.empty((ns, 3 * 512), np.int32),
+                   np.empty(nl, np.uint8))
+            self._lib.stn_zstd_prep_fetch(h, _ptr(buf), _ptr(offs),
+                                          _ptr(out[0]), _ptr(out[1]), width,
+                                          *(_ptr(a) for a in out[2:]))
+        finally:
+            self._lib.stn_zstd_prep_free(h)
+        return (status, *out)
 
     def matchiness(self, data, sample_n: int = 16384) -> float:
         """Duplicate-4-gram fraction of the block's first sample_n

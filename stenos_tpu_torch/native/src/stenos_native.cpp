@@ -10,10 +10,12 @@
 // All calls are GIL-free (ctypes releases the GIL), so the Python runtime can
 // fan superblocks out over a thread pool.
 
+#include <atomic>
 #include <cmath>
 #include <cstdint>
 #include <cstring>
 #include <cstddef>
+#include <thread>
 #include <vector>
 
 #define EXPORT extern "C" __attribute__((visibility("default")))
@@ -3155,3 +3157,464 @@ EXPORT ptrdiff_t stn_encode_block(const uint8_t* data, size_t n,
     reps[0] = best_reps[0]; reps[1] = best_reps[1]; reps[2] = best_reps[2];
     return (ptrdiff_t)(3 + best.size());
 }
+
+// ===================================================================
+// Host pass of the batched device zstd decode
+// (stenos_tpu_torch/entropy/device_decode.py): per payload (a zstd frame
+// and an optional decode-anchor sidecar), the sidecar, frame, block and
+// section headers, and per block its literals and its sequences section,
+// exactly as that module's Python host pass did one payload at a time:
+// the same parse (entropy/sidecar.py split_sidecar, entropy/zstd_parse.py
+// parse_frame) and the same choices. The payloads run on a few threads.
+//   literals: a K5 job (4 Huffman stream spans, code lengths and anchors,
+//             from the sidecar or stn_huf_anchors) when the section holds
+//             4 streams of at most max_stream bytes each; else host bytes
+//             (raw, RLE, stn_huf_lits)
+//   sequences: the stn_zstd_dtables prep (Repeat_Mode chained in order)
+// A payload's status: 0 ok, 1 a header the device route rejects (the host
+// ladder), 2 corrupt literals.
+
+namespace {
+
+constexpr uint32_t kZstdMagic = 0xFD2FB528u;
+constexpr uint32_t kSidecarMagic = 0x184D2A5Cu;
+constexpr int64_t kPrepBlockMax = 131072;
+enum { PREP_OK = 0, PREP_LADDER = 1, PREP_CORRUPT = 2 };
+
+struct PrepEntry {
+    bool present = false;
+    uint8_t lens[256];
+    int32_t anch[1024];
+};
+
+struct PrepLit {
+    int kind = 0;  // 0 raw, 1 rle, 2 huf
+    int64_t regen = 0, off = 0, length = 0;
+    uint8_t byte = 0;
+    bool four = false, treeless = false;
+};
+
+struct PrepSpec {
+    int btype = 0;
+    int64_t start = 0, size = 0, rsize = 0;
+    PrepLit lit;
+    int64_t seq_off = 0, seq_len = 0;
+};
+
+struct PrepJob {
+    int64_t off[4], len[4];
+    uint8_t lens[256];
+    int32_t anch[1024];
+};
+
+struct PrepSec {
+    int64_t stream_off, stream_len, bp0, nseq, tl[3];
+    int32_t tab[3 * 512];
+};
+
+struct PrepPayload {
+    int status = PREP_OK;
+    // per block: regenerated, host literal bytes before it in lits, job
+    // index or -1, section index or -1 (indexes into jobs / secs)
+    std::vector<int64_t> blocks;
+    std::vector<PrepJob> jobs;
+    std::vector<PrepSec> secs;
+    std::vector<uint8_t> lits;
+};
+
+struct PrepBatch {
+    std::vector<PrepPayload> p;
+};
+
+inline uint32_t rd16(const uint8_t* p) { return p[0] | (uint32_t)p[1] << 8; }
+inline uint32_t rd24(const uint8_t* p) {
+    return p[0] | (uint32_t)p[1] << 8 | (uint32_t)p[2] << 16;
+}
+
+// sidecar.py _parse_entries; false for None
+bool prep_entries(const uint8_t* body, size_t blen,
+                  std::vector<PrepEntry>* out) {
+    const uint32_t nb = rd24(body);
+    size_t p = 3;
+    out->clear();
+    for (uint32_t k = 0; k < nb; ++k) {
+        if (p >= blen) return false;
+        const uint8_t flag = body[p++];
+        out->emplace_back();
+        if (flag == 0) continue;
+        if (p + 128 + 4 * (4 + 510) > blen) return false;
+        PrepEntry& e = out->back();
+        e.present = true;
+        for (int i = 0; i < 128; ++i) {
+            e.lens[2 * i] = body[p + i] & 15;
+            e.lens[2 * i + 1] = body[p + i] >> 4;
+        }
+        p += 128;
+        for (int s = 0; s < 4; ++s) {
+            const int64_t total = read32(body + p);
+            int64_t a = total;
+            e.anch[256 * s] = (int32_t)a;
+            for (int j = 1; j < 256; ++j) {
+                a -= rd16(body + p + 4 + 2 * (j - 1));
+                e.anch[256 * s + j] = (int32_t)a;
+            }
+            p += 4 + 510;
+        }
+    }
+    return true;
+}
+
+// sidecar.py split_sidecar: the frame's end; *have when entries parsed
+size_t prep_split_sidecar(const uint8_t* pl, size_t n, bool* have,
+                          std::vector<PrepEntry>* entries) {
+    *have = false;
+    if (n < 9) return n;
+    auto rfind = [&](ptrdiff_t hi) -> ptrdiff_t {  // highest i <= hi
+        for (ptrdiff_t i = hi; i >= 0; --i)
+            if (read32(pl + i) == kSidecarMagic) return i;
+        return -1;
+    };
+    ptrdiff_t pos = rfind((ptrdiff_t)n - 4);
+    while (pos != -1) {
+        if ((size_t)pos + 8 <= n) {
+            const uint32_t size = read32(pl + pos + 4);
+            if ((size_t)pos + 8 + size == n && size >= 4 && pl[pos + 8] == 1) {
+                *have = prep_entries(pl + pos + 9, n - pos - 9, entries);
+                return (size_t)pos;
+            }
+        }
+        pos = rfind(pos - 4);
+    }
+    return n;
+}
+
+// zstd_parse.py _parse_sections
+bool prep_sections(const uint8_t* pl, PrepSpec* s) {
+    int64_t p = s->start;
+    const int64_t end = s->start + s->size;
+    if (p >= end) return false;
+    const uint8_t b0 = pl[p];
+    const int ltype = b0 & 3, sf = (b0 >> 2) & 3;
+    PrepLit& lit = s->lit;
+    if (ltype <= 1) {
+        int64_t regen, hlen;
+        if (sf == 0 || sf == 2) {
+            regen = b0 >> 3;
+            hlen = 1;
+        } else if (sf == 1) {
+            if (p + 2 > end) return false;
+            regen = (b0 >> 4) | ((int64_t)pl[p + 1] << 4);
+            hlen = 2;
+        } else {
+            if (p + 3 > end) return false;
+            regen = (b0 >> 4) | ((int64_t)pl[p + 1] << 4)
+                    | ((int64_t)pl[p + 2] << 12);
+            hlen = 3;
+        }
+        const int64_t body = ltype == 0 ? regen : 1;
+        if (p + hlen + body > end) return false;
+        lit.kind = ltype;
+        lit.regen = regen;
+        if (ltype == 0) {
+            lit.off = p + hlen;
+            lit.length = regen;
+        } else {
+            lit.byte = pl[p + hlen];
+        }
+        p += hlen + body;
+    } else {
+        int64_t regen, csize, hlen;
+        bool four = true;
+        if (sf <= 1) {
+            if (p + 3 > end) return false;
+            const uint32_t h = rd24(pl + p);
+            regen = (h >> 4) & 0x3FF;
+            csize = (h >> 14) & 0x3FF;
+            hlen = 3;
+            four = sf == 1;
+        } else if (sf == 2) {
+            if (p + 4 > end) return false;
+            const uint32_t h = read32(pl + p);
+            regen = (h >> 4) & 0x3FFF;
+            csize = (h >> 18) & 0x3FFF;
+            hlen = 4;
+        } else {
+            if (p + 5 > end) return false;
+            const uint64_t h = read32(pl + p) | (uint64_t)pl[p + 4] << 32;
+            regen = (h >> 4) & 0x3FFFF;
+            csize = (h >> 22) & 0x3FFFF;
+            hlen = 5;
+        }
+        if (p + hlen + csize > end) return false;
+        lit.kind = 2;
+        lit.regen = regen;
+        lit.off = p + hlen;
+        lit.length = csize;
+        lit.four = four;
+        lit.treeless = ltype == 3;
+        p += hlen + csize;
+    }
+    s->seq_off = p;
+    s->seq_len = end - p;
+    return true;
+}
+
+// zstd_parse.py parse_frame over pl[0, n); false for None
+bool prep_frame(const uint8_t* pl, size_t n, bool* has_content,
+                uint64_t* content, std::vector<PrepSpec>* blocks) {
+    if (n < 5 || read32(pl) != kZstdMagic) return false;
+    const uint8_t fhd = pl[4];
+    size_t p = 5;
+    const int checksum = (fhd >> 2) & 1, single = (fhd >> 5) & 1;
+    const int fcs_code = fhd >> 6;
+    if (fhd & 3) return false;
+    if (!single) p += 1;
+    static const int kFcs[4] = {0, 2, 4, 8};
+    const int fcs = fcs_code == 0 ? (single ? 1 : 0) : kFcs[fcs_code];
+    *has_content = fcs > 0;
+    if (fcs) {
+        if (p + fcs > n) return false;
+        uint64_t c = 0;
+        for (int i = 0; i < fcs; ++i) c |= (uint64_t)pl[p + i] << (8 * i);
+        *content = fcs == 2 ? c + 256 : c;
+        p += fcs;
+    }
+    blocks->clear();
+    bool last = false;
+    while (!last) {
+        if (p + 3 > n) return false;
+        const uint32_t bh = rd24(pl + p);
+        last = bh & 1;
+        const int btype = (bh >> 1) & 3;
+        const int64_t bsize = bh >> 3;
+        p += 3;
+        if (btype == 3) return false;
+        const int64_t body = btype == 1 ? 1 : bsize;
+        if (p + body > n) return false;
+        PrepSpec s;
+        s.btype = btype;
+        s.start = (int64_t)p;
+        s.size = body;
+        s.rsize = btype != 2 ? bsize : 0;
+        if (btype == 2 && !prep_sections(pl, &s)) return false;
+        blocks->push_back(s);
+        p += body;
+    }
+    if (checksum) p += 4;
+    return p <= n;
+}
+
+// device_decode.py's former _spans: the 4 stream spans of a Huffman
+// literals section whose tree description starts at p
+bool prep_spans(const uint8_t* pl, int64_t p, int64_t lit_end, PrepJob* j) {
+    if (p >= lit_end) return false;
+    const int tb = pl[p];
+    p += 1 + (tb < 128 ? tb : ((tb - 127) + 1) / 2);
+    if (p + 6 > lit_end) return false;
+    const int64_t j1 = rd16(pl + p), j2 = rd16(pl + p + 2),
+                  j3 = rd16(pl + p + 4);
+    p += 6;
+    const int64_t s4 = lit_end - (p + j1 + j2 + j3);
+    if (s4 <= 0) return false;
+    const int64_t len[4] = {j1, j2, j3, s4};
+    for (int i = 0; i < 4; ++i) {
+        j->off[i] = p;
+        j->len[i] = len[i];
+        p += len[i];
+    }
+    return true;
+}
+
+int prep_payload(const uint8_t* pl, size_t n, int64_t dsize,
+                 int64_t max_stream, uint8_t* ctx, PrepPayload* out) {
+    bool have = false;
+    std::vector<PrepEntry> entries;
+    const size_t frame_end = prep_split_sidecar(pl, n, &have, &entries);
+    bool has_content = false;
+    uint64_t content = 0;
+    std::vector<PrepSpec> blocks;
+    if (!prep_frame(pl, frame_end, &has_content, &content, &blocks))
+        return PREP_LADDER;
+    if (has_content && content != (uint64_t)dsize) return PREP_LADDER;
+    if (have && entries.size() != blocks.size()) have = false;
+    std::memset(ctx, 0, sizeof(ZstdDecCtx));
+    for (size_t bi = 0; bi < blocks.size(); ++bi) {
+        const PrepSpec& s = blocks[bi];
+        const int64_t lit_at = (int64_t)out->lits.size();
+        if (s.btype != 2) {
+            const int64_t len = s.btype == 0 ? s.size : s.rsize;
+            if (len > kPrepBlockMax) return PREP_LADDER;
+            if (s.btype == 0)
+                out->lits.insert(out->lits.end(), pl + s.start,
+                                 pl + s.start + len);
+            else
+                out->lits.insert(out->lits.end(), (size_t)len, pl[s.start]);
+            out->blocks.insert(out->blocks.end(), {len, lit_at, -1, -1});
+            continue;
+        }
+        const PrepLit& lit = s.lit;
+        if (lit.regen > kPrepBlockMax) return PREP_LADDER;
+        const bool huf4 = lit.kind == 2 && lit.four && !lit.treeless
+                          && lit.regen >= 64;
+        PrepJob job;
+        bool ent = false;
+        if (huf4 && have && entries[bi].present) {
+            std::memcpy(job.lens, entries[bi].lens, 256);
+            std::memcpy(job.anch, entries[bi].anch, sizeof job.anch);
+            ent = true;
+        } else if (huf4) {
+            ent = stn_huf_anchors(pl + lit.off, (size_t)lit.length,
+                                  (size_t)lit.regen, ctx, job.lens,
+                                  job.anch) == 0;
+        }
+        int64_t job_at = -1;
+        if (ent && prep_spans(pl, lit.off, lit.off + lit.length, &job)) {
+            bool fits = true;
+            for (int i = 0; i < 4; ++i) fits &= job.len[i] <= max_stream;
+            if (fits) {
+                job_at = (int64_t)out->jobs.size();
+                out->jobs.push_back(job);
+            }
+        }
+        if (job_at < 0) {
+            if (lit.kind == 0) {
+                out->lits.insert(out->lits.end(), pl + lit.off,
+                                 pl + lit.off + lit.length);
+            } else if (lit.kind == 1) {
+                out->lits.insert(out->lits.end(), (size_t)lit.regen, lit.byte);
+            } else {
+                out->lits.resize(lit_at + lit.regen + 1);
+                if (stn_huf_lits(pl + lit.off, (size_t)lit.length, lit.four,
+                                 lit.treeless, (size_t)lit.regen, ctx,
+                                 out->lits.data() + lit_at) < 0)
+                    // a treeless block's table came in a sidecar entry
+                    return lit.treeless ? PREP_LADDER : PREP_CORRUPT;
+                out->lits.resize(lit_at + lit.regen);
+            }
+        }
+        int64_t sec_at = -1;
+        if (!(s.seq_len == 1 && pl[s.seq_off] == 0)) {
+            PrepSec sec;
+            int32_t meta[8];
+            const ptrdiff_t r = stn_zstd_dtables(pl + s.seq_off,
+                                                 (size_t)s.seq_len, ctx,
+                                                 sec.tab, meta);
+            if (r < 0) return PREP_LADDER;
+            if (r > 0) {
+                sec.stream_off = s.seq_off + meta[1];
+                sec.stream_len = s.seq_len - meta[1];
+                sec.bp0 = meta[2];
+                sec.nseq = r;
+                sec.tl[0] = meta[3];
+                sec.tl[1] = meta[4];
+                sec.tl[2] = meta[5];
+                sec_at = (int64_t)out->secs.size();
+                out->secs.push_back(sec);
+            }
+        }
+        out->blocks.insert(out->blocks.end(),
+                           {lit.regen, job_at < 0 ? lit_at : 0, job_at,
+                            sec_at});
+    }
+    return PREP_OK;
+}
+
+}  // namespace
+
+// The host pass over n payloads, payload i at buf[offs[i], offs[i] +
+// lens[i]) of dsizes[i] bytes, on `threads` threads. status[i] gets each
+// payload's status; counts gets [blocks, jobs, sections, host literal
+// bytes, longest job stream] over the payloads whose status is 0. Returns
+// a handle for stn_zstd_prep_fetch (then stn_zstd_prep_free).
+EXPORT void* stn_zstd_prep_batch(const uint8_t* buf, const int64_t* offs,
+                                 const int64_t* lens, const int64_t* dsizes,
+                                 size_t n, int threads, int64_t max_stream,
+                                 int32_t* status, int64_t* counts) {
+    PrepBatch* h = new PrepBatch;
+    h->p.resize(n);
+    std::atomic<size_t> next(0);
+    auto work = [&]() {
+        std::vector<uint8_t> ctx(sizeof(ZstdDecCtx));
+        for (size_t i; (i = next.fetch_add(1)) < n;) {
+            PrepPayload& pp = h->p[i];
+            pp.status = prep_payload(buf + offs[i], (size_t)lens[i],
+                                     dsizes[i], max_stream, ctx.data(), &pp);
+        }
+    };
+    const int t = threads < 1 ? 1 : (size_t)threads > n ? (int)n : threads;
+    std::vector<std::thread> pool;
+    for (int k = 1; k < t; ++k) pool.emplace_back(work);
+    work();
+    for (auto& th : pool) th.join();
+    for (int k = 0; k < 5; ++k) counts[k] = 0;
+    for (size_t i = 0; i < n; ++i) {
+        const PrepPayload& pp = h->p[i];
+        status[i] = pp.status;
+        if (pp.status != PREP_OK) continue;
+        counts[0] += (int64_t)pp.blocks.size() / 4;
+        counts[1] += (int64_t)pp.jobs.size();
+        counts[2] += (int64_t)pp.secs.size();
+        counts[3] += (int64_t)pp.lits.size();
+        for (const PrepJob& j : pp.jobs)
+            for (int s = 0; s < 4; ++s)
+                counts[4] = j.len[s] > counts[4] ? j.len[s] : counts[4];
+    }
+    return h;
+}
+
+// The pass's outputs over the payloads whose status is 0, in order:
+//   blocks (nblk, 5) int64  payload, regenerated, host literal offset (into
+//                           lits), job or -1, section or -1
+//   rows (4 njobs, width) uint8  each job's 4 streams, zero-padded
+//   anchors (4 njobs, 256) int32, lens (njobs, 256) uint8
+//   meta (nsec, 8) int64    stream offset (into buf), stream length, bp0,
+//                           nseq, first sequence, tl_ll, tl_of, tl_ml
+//   tabs (nsec, 1536) int32, lits (host literal bytes)
+EXPORT void stn_zstd_prep_fetch(void* handle, const uint8_t* buf,
+                                const int64_t* offs, int64_t* blocks,
+                                uint8_t* rows, int64_t width,
+                                int32_t* anchors, uint8_t* lens,
+                                int64_t* meta, int32_t* tabs, uint8_t* lits) {
+    const PrepBatch* h = (const PrepBatch*)handle;
+    int64_t nb = 0, nj = 0, ns = 0, nl = 0, seq = 0;
+    for (size_t i = 0; i < h->p.size(); ++i) {
+        const PrepPayload& pp = h->p[i];
+        if (pp.status != PREP_OK) continue;
+        for (size_t b = 0; b < pp.blocks.size(); b += 4, ++nb) {
+            int64_t* o = blocks + 5 * nb;
+            o[0] = (int64_t)i;
+            o[1] = pp.blocks[b];
+            o[2] = pp.blocks[b + 2] < 0 ? nl + pp.blocks[b + 1] : 0;
+            o[3] = pp.blocks[b + 2] < 0 ? -1 : nj + pp.blocks[b + 2];
+            o[4] = pp.blocks[b + 3] < 0 ? -1 : ns + pp.blocks[b + 3];
+        }
+        for (const PrepJob& j : pp.jobs) {
+            for (int s = 0; s < 4; ++s) {
+                uint8_t* r = rows + (4 * nj + s) * width;
+                std::memcpy(r, buf + offs[i] + j.off[s], (size_t)j.len[s]);
+                std::memset(r + j.len[s], 0, (size_t)(width - j.len[s]));
+            }
+            std::memcpy(anchors + 1024 * nj, j.anch, sizeof j.anch);
+            std::memcpy(lens + 256 * nj, j.lens, 256);
+            ++nj;
+        }
+        for (const PrepSec& s : pp.secs) {
+            int64_t* m = meta + 8 * ns;
+            m[0] = offs[i] + s.stream_off;
+            m[1] = s.stream_len;
+            m[2] = s.bp0;
+            m[3] = s.nseq;
+            m[4] = seq;
+            m[5] = s.tl[0];
+            m[6] = s.tl[1];
+            m[7] = s.tl[2];
+            std::memcpy(tabs + 1536 * ns, s.tab, sizeof s.tab);
+            seq += s.nseq;
+            ++ns;
+        }
+        std::memcpy(lits + nl, pp.lits.data(), pp.lits.size());
+        nl += (int64_t)pp.lits.size();
+    }
+}
+
+EXPORT void stn_zstd_prep_free(void* handle) { delete (PrepBatch*)handle; }

@@ -93,19 +93,21 @@ def ref_frames(blocks3):
 
 # ------------------------------------------------------- K7 sequence decode
 def _decode_chain(secs):
-    """K7's plain version over secs (one batch, tables chained in order),
-    then the repeat offsets resolved natively: (raw triples, offsets)."""
+    """K7's plain version over secs (one lane, tables chained in order):
+    (raw triples, offsets) a section; its offsets equal the native
+    resolve_reps of its raw triples, chained across the sections."""
     ctx = lib.zstd_ctx()
     preps = [seqdec_kernel.prep_section(s, ctx) for s in secs]
-    ll, ml, ofv, err = seqdec_kernel.decode_sections(
+    ll, ml, ofv, off, summ = seqdec_kernel.decode_sections(
         *seqdec_kernel.pack_sections(preps, "cpu"))
-    assert not err.any()
+    assert not summ[:, 3].any()
     reps = np.array([1, 4, 8], np.int64)
     out, s0 = [], 0
     for p in preps:
         n = p["nseq"]
         raw = tuple(t[s0 : s0 + n].numpy() for t in (ll, ml, ofv))
         out.append((raw, lib.resolve_reps(raw[0], raw[2], reps)))
+        assert (off[s0 : s0 + n].numpy() == out[-1][1]).all()
         s0 += n
     return out, reps
 
@@ -152,9 +154,9 @@ def test_seq_decode_plain_matches_pallas():
     want = decode_sections_device([ref_prep(sec, ref_lib.zstd_ctx())],
                                   interpret=True)[0]
     p = seqdec_kernel.prep_section(sec, lib.zstd_ctx())
-    ll, ml, ofv, err = seqdec_kernel.decode_sections(
+    ll, ml, ofv, _, summ = seqdec_kernel.decode_sections(
         *seqdec_kernel.pack_sections([p], "cpu"))
-    assert err.tolist() == [0] and seqdec_kernel.launches == 0
+    assert summ[:, 3].tolist() == [0] and seqdec_kernel.launches == 0
     for a, b in zip((ll, ml, ofv), want):
         assert (a.numpy() == b).all()
 
@@ -167,7 +169,7 @@ def test_seq_decode_flags_corrupt_section():
     p = seqdec_kernel.prep_section(sec, lib.zstd_ctx())
     p["nseq"] += 1
     err = seqdec_kernel.decode_sections(
-        *seqdec_kernel.pack_sections([p], "cpu"))[3]
+        *seqdec_kernel.pack_sections([p], "cpu"))[4][:, 3]
     assert err.tolist() == [2]
     q = ref_prep(sec, ref_lib.zstd_ctx())
     q["nseq"] += 1
@@ -220,7 +222,8 @@ def _jax_programs_run(out, lits, ll, ml, off, blocks, lanes, gapped):
     """The same sequences through the JAX package's programs (native
     seq_ops, pack_programs, run_programs_numpy) in its own layouts: literal
     area first, then one row of BLOCK + W a block (gapped) or the dense
-    output with the other blocks riding copy ops (gapless)."""
+    output with the other blocks riding copy ops (gapless). blocks: X1's
+    first 6 columns, every literal in lits."""
     W = ref_decode.W
     row = BLOCK + W
     out, lits = out.numpy(), lits.numpy()
@@ -281,19 +284,21 @@ def test_seq_exec_plain_matches_programs(gapped, monkeypatch):
     calls = []
     real = seq_exec.execute
 
-    def spy(out, lits, *rest, staged=False):
-        calls.append((out.clone(), lits.clone(), *rest, staged))
-        return real(out, lits, *rest, staged=staged)
+    def spy(out, *rest):
+        calls.append((out.clone(), *rest))
+        return real(out, *rest)
 
     monkeypatch.setattr(device_decode, "execute", spy)
     got = device_decode.decode_payload_device(payload, len(data), "cpu")
     assert got is not None and np.array_equal(got.numpy(), data)
-    (out, lits, ll, ml, off, blocks, lanes, staged), = calls
-    assert staged == gapped and len(lanes) == (len(blocks) if gapped else 1)
-    assert len(blocks) >= 2
-    plain = seq_exec.execute_plain(out.clone(), lits, ll, ml, off, blocks,
-                                   lanes, staged)
-    want = _jax_programs_run(out, lits, ll, ml, off, blocks, lanes, gapped)
+    (out, lits, rows, ll, ml, off, blocks, lanes), = calls
+    assert len(lanes) == (len(blocks) if gapped else 1)
+    assert bool(lanes[:, 2].any()) == gapped and len(blocks) >= 2
+    plain = seq_exec.execute_plain(out.clone(), lits, rows, ll, ml, off,
+                                   blocks, lanes)
+    lits, blocks = seq_exec.gather_literals(lits, rows, blocks)
+    want = _jax_programs_run(out, lits, ll, ml, off, blocks[:, :6], lanes,
+                             gapped)
     assert np.array_equal(plain.numpy(), want)
     assert np.array_equal(plain.numpy(), data)
 
