@@ -966,7 +966,7 @@ def phase_zstd(dev):
     encode_sequences and decoded back through K7. (d) K5, K6, K7 and X1
     against their plain versions on the calls of (a)-(c); K7 and X1 timed on
     the path's own call, the first 64 MiB chunk of the libzstd frame's
-    decode, K7 with both stream sources."""
+    decode."""
     res = {"launches": {}}
     err = {"fse_encode": 0, "seq_decode": 0, "seq_exec": 0,
            "huff_histogram": 0, "huff_encode_streams": 0,
@@ -1191,20 +1191,16 @@ def phase_zstd(dev):
         "bytes": (sum(a.numel() * a.element_size() for a in k6_args)
                   + int(k6_out[1].sum()) // 8 + 8 * nb),
         "blocks": nb, "sequences": nseq_c}
-    # K7 (both stream sources) and X1 on every captured call, against the
-    # plain versions; the libzstd frame's first chunk is timed
+    # K7 and X1 on every captured call, against the plain versions; the
+    # libzstd frame's first chunk is timed
     k7_calls += [c["k7_call"] for c in cell.values()]
     x1_calls += [c["x1_call"] for c in cell.values()]
-    keep = seqdec_kernel.STAGED
     plain_ms = {}
     for a7 in k7_calls:
         p, p_ms = timed(lambda: seqdec_kernel.decode_sections_plain(*a7))
         plain_ms[id(a7)] = p_ms
-        for variant in (0, 1):
-            seqdec_kernel.STAGED = variant
-            err["seq_decode"] = max(err["seq_decode"], zstd_exact(
-                "K7", seqdec_kernel.decode_sections(*a7), p))
-        seqdec_kernel.STAGED = keep
+        err["seq_decode"] = max(err["seq_decode"], zstd_exact(
+            "K7", seqdec_kernel.decode_sections(*a7), p))
         del p
     for a1 in x1_calls:
         got = seq_exec.execute(*fresh(a1))
@@ -1212,19 +1208,14 @@ def phase_zstd(dev):
         plain_ms[id(a1)] = p1_ms
         err["seq_exec"] = max(err["seq_exec"], zstd_exact("X1", (got,), (p,)))
         del got, p
-    log(f"K7 ({len(k7_calls)} calls, both stream sources) and X1 "
-        f"({len(x1_calls)} calls) on the grid batch, the K6 sections, a "
-        "corrupt section and the text decodes' first chunks: max abs err vs "
-        f"the plain versions {err['seq_decode']}, {err['seq_exec']}")
+    log(f"K7 ({len(k7_calls)} calls) and X1 ({len(x1_calls)} calls) on the "
+        "grid batch, the K6 sections, a corrupt section and the text "
+        "decodes' first chunks: max abs err vs the plain versions "
+        f"{err['seq_decode']}, {err['seq_exec']}")
     a7 = cell["libzstd"]["k7_call"]
-    ms7 = {}
-    for variant in (0, 1):
-        seqdec_kernel.STAGED = variant
-        ms7[variant] = cuda_ms(lambda: seqdec_kernel.decode_sections(*a7), 10)
-    seqdec_kernel.STAGED = keep
     times["seq_decode"] = {
-        "ms": ms7[keep], "ms_global_words": ms7[0],
-        "ms_staged_stream": ms7[1], "plain_ms": plain_ms[id(a7)],
+        "ms": cuda_ms(lambda: seqdec_kernel.decode_sections(*a7), 10),
+        "plain_ms": plain_ms[id(a7)],
         "bytes": seq_decode_bytes(a7), "lanes": a7[3].shape[0],
         "sections": a7[1].shape[0], "sequences": int(a7[1][:, 3].sum()),
         "longest_section": int(a7[1][:, 3].max())}

@@ -17,13 +17,13 @@
 // base << 16) in shared memory, then walks the backward bitstream
 // (RFC 8878 §3.1.1.3.2) with a 64-bit container of two aligned 32-bit
 // stream words and 32-bit cursors (a section of a 128 KiB block has fewer
-// than 2^21 bits). The word below the container comes from one of two
-// sources, chosen at launch:
-//   staged = 0  global memory (__ldg), the next word loaded one shift ahead;
-//   staged = 1  a window of 2,048 words in shared memory, filled by the
-//               whole warp in coalesced loads each time the cursor leaves it.
-// The whole warp walks in step (one instruction stream, so it costs what one
-// thread does) and lane 0 stores.
+// than 2^21 bits). The word below the container comes from a window of
+// 2,048 stream words in shared memory, filled by the whole warp in coalesced
+// loads each time the cursor leaves it, so the walk reads no device memory
+// between fills (reading aligned words from global memory one shift ahead
+// instead took 4% longer on the text cell's chunks). The whole warp walks in
+// step (one instruction stream, so it costs what one thread does) and lane 0
+// stores.
 //
 // Semantics are the TPU kernel's: the initial states read tl_ll, tl_of,
 // tl_ml bits; each sequence decodes the OF, ML, LL values (an OF code over
@@ -55,7 +55,7 @@ namespace {
 constexpr int kStates = 512;
 constexpr int kMeta = 8;  // stream_off, stream_len, bp0, nseq, seq_off, tl_ll, tl_of, tl_ml
 constexpr int kSumm = 4;  // sum ll, sum ml, lowest match source, error bits
-constexpr int kWin = 2048;  // staged stream words
+constexpr int kWin = 2048;  // stream words in shared memory
 
 __constant__ int kLLBase[36] = {
     0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15,
@@ -102,28 +102,9 @@ struct Words {
     }
 };
 
-// Global-memory source: next() hands out words jn, jn - 1, ..., the word
-// after the one returned already in flight.
-struct GlobalSrc {
-    Words words;
-    int jn;
-    uint32_t q;
-
-    __device__ GlobalSrc(const Words& ws, uint32_t*) : words(ws) {}
-    __device__ uint64_t start(int jl) {
-        jn = jl - 1;
-        q = words(jn);
-        return ((uint64_t)words(jl + 1) << 32) | words(jl);
-    }
-    __device__ uint32_t next() {
-        const uint32_t v = q;
-        q = words(--jn);
-        return v;
-    }
-};
-
-// Shared-memory source: a window of kWin words [base, base + kWin), filled
-// by the whole warp (every lane calls next() in step).
+// The stream's words below the container: a window of kWin words [base,
+// base + kWin) in shared memory, filled by the whole warp (every lane calls
+// next() in step) in coalesced loads; next() hands out words jn, jn - 1, ...
 struct SharedSrc {
     Words words;
     uint32_t* win;
@@ -150,9 +131,8 @@ struct SharedSrc {
 // Backward bit reader: cont holds stream bits [32 jl, 32 jl + 64) (in the
 // aligned words' coordinates) and 32 jl <= bp <= 32 jl + 64 holds between
 // reads; a read of k <= 32 bits shifts in at most one word.
-template <class Src>
 struct Reader {
-    Src src;
+    SharedSrc src;
     uint64_t cont;
     int jl, bp;
 
@@ -174,7 +154,6 @@ struct Reader {
     }
 };
 
-template <class Src>
 __device__ void walk_lane(const uint8_t* __restrict__ bytes,
                           const long long* __restrict__ meta,
                           const int* __restrict__ tabs, long long s0,
@@ -201,7 +180,7 @@ __device__ void walk_lane(const uint8_t* __restrict__ bytes,
         const uint8_t* s = bytes + m[0];
         const Words ws(s, (int)m[1]);
         const int a0 = (int)((uintptr_t)s & 3);
-        Reader<Src> br(ws, s_win, (int)m[2] + 8 * a0);
+        Reader br(ws, s_win, (int)m[2] + 8 * a0);
         const int nseq = (int)m[3];
         int* ll = ll_out + m[4];
         int* ml = ml_out + m[4];
@@ -278,7 +257,6 @@ __device__ void walk_lane(const uint8_t* __restrict__ bytes,
     }
 }
 
-template <bool kStaged>
 __global__ void __launch_bounds__(32)
 seq_decode(const uint8_t* __restrict__ bytes, const long long* __restrict__ meta,
            const int* __restrict__ tabs, const long long* __restrict__ lanes,
@@ -286,14 +264,10 @@ seq_decode(const uint8_t* __restrict__ bytes, const long long* __restrict__ meta
            int* __restrict__ of_out, int* __restrict__ off_out,
            long long* __restrict__ summ) {
     __shared__ int s_tab[3 * kStates];
-    __shared__ uint32_t s_win[kStaged ? kWin : 1];
-    const long long s0 = lanes[2 * blockIdx.x], s1 = lanes[2 * blockIdx.x + 1];
-    if (kStaged)
-        walk_lane<SharedSrc>(bytes, meta, tabs, s0, s1, ll_out, ml_out, of_out,
-                             off_out, summ, s_tab, s_win);
-    else
-        walk_lane<GlobalSrc>(bytes, meta, tabs, s0, s1, ll_out, ml_out, of_out,
-                             off_out, summ, s_tab, s_win);
+    __shared__ uint32_t s_win[kWin];
+    walk_lane(bytes, meta, tabs, lanes[2 * blockIdx.x],
+              lanes[2 * blockIdx.x + 1], ll_out, ml_out, of_out, off_out,
+              summ, s_tab, s_win);
 }
 
 }  // namespace
@@ -304,27 +278,17 @@ seq_decode(const uint8_t* __restrict__ bytes, const long long* __restrict__ meta
 // (nsec, 8) int64, tables (nsec, 1536) int32, lanes (nlanes, 2) int64
 // section ranges, the (total,) int32 outputs ll, ml, offset values and
 // resolved offsets at each section's seq_off, and summ (nsec, 4) int64.
-// staged picks the stream source (see the note at the top). The launch goes
-// on `stream`; the return value is the first CUDA error of the call (0 when
-// none).
+// The launch goes on `stream`; the return value is the first CUDA error of
+// the call (0 when none).
 extern "C" int stenos_seq_decode(const void* bytes, const void* meta,
                                  const void* tabs, const void* lanes,
                                  long long nlanes, void* ll, void* ml,
-                                 void* of, void* off, void* summ, int staged,
+                                 void* of, void* off, void* summ,
                                  void* stream) {
-    const cudaStream_t st = (cudaStream_t)stream;
-    const auto b = (const uint8_t*)bytes;
-    const auto m = (const long long*)meta;
-    const auto t = (const int*)tabs;
-    const auto l = (const long long*)lanes;
-    if (staged)
-        seq_decode<true><<<(unsigned)nlanes, 32, 0, st>>>(
-            b, m, t, l, (int*)ll, (int*)ml, (int*)of, (int*)off,
-            (long long*)summ);
-    else
-        seq_decode<false><<<(unsigned)nlanes, 32, 0, st>>>(
-            b, m, t, l, (int*)ll, (int*)ml, (int*)of, (int*)off,
-            (long long*)summ);
+    seq_decode<<<(unsigned)nlanes, 32, 0, (cudaStream_t)stream>>>(
+        (const uint8_t*)bytes, (const long long*)meta, (const int*)tabs,
+        (const long long*)lanes, (int*)ll, (int*)ml, (int*)of, (int*)off,
+        (long long*)summ);
     return (int)cudaGetLastError();
 }
 #endif

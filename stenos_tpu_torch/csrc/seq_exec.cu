@@ -16,12 +16,15 @@
 //       rows (K5: a block's literals are its 4 stream rows, ceil(n/4)
 //       symbols each, the last one the rest). Literals do not depend on
 //       matches, so this pass is parallel.
-//   (b) matches: warp 0 runs them in order, out[p + i] = out[p - off +
-//       (i % off)] for i < ml (every source byte lies before p and is final,
-//       so an overlapping match is one parallel copy too), with one warp
-//       barrier a sequence. The next tile's 32 sequences are loaded into
-//       registers while the current tile runs (a register double buffer),
-//       so no device-memory load sits in the chain.
+//   (b) matches: warp 0, out[p + i] = out[p - off + (i % off)] for i < ml
+//       (every source byte lies before p and is final by then, so an
+//       overlapping match is one parallel copy too). In a tile of 32
+//       sequences, the matches of at most 32 bytes whose source ends before
+//       the tile's first match start read only final bytes: they copy at
+//       once, one lane each; the others follow in order, the warp copying
+//       each, with a warp barrier after it. The next tile's sequences are
+//       loaded into registers while the current tile runs (a register
+//       double buffer), so no device-memory load sits in the chain.
 // A staged lane is one block whose matches stay inside it (the caller
 // checked): it is built in up to 128 KiB of dynamic shared memory and
 // written out in 16-byte stores. Other lanes (a frame whose matches reach
@@ -29,8 +32,9 @@
 //
 // Bound: bytes (literals and sequences in, the output written once). The
 // real limit is the match pass's serial chain: a dependent shared-memory
-// copy and a warp barrier a sequence. One CTA with 128 KiB staged fits an
-// SM, so a chunk of 512 blocks runs in about 4 waves.
+// copy and a warp barrier for each match that reads the tile's own output.
+// One CTA with 128 KiB staged fits an SM, so a chunk of 512 blocks runs in
+// about 4 waves.
 
 #include <cstdint>
 
@@ -172,9 +176,12 @@ seq_exec(uint8_t* out, const uint8_t* __restrict__ lits,
         copy_lits_cta(o + c_pos, lit, rows, row, s1, c_ll, lit_len - c_ll);
         __syncthreads();
 
-        // (b) matches, in order, by warp 0
+        // (b) matches, by warp 0, a tile of 32 sequences at a time: the
+        // short matches whose source lies before the tile's first match
+        // (final bytes) copy at once, a lane each; the others follow in
+        // order, the warp copying each
         if (warp == 0 && nseq > 0) {
-            int p = 0;
+            int base = 0;  // the output position where the tile starts
             int nl = 0, nm = 0, no = 1;
             if (lane < nseq) {
                 nl = ll[seq0 + lane];
@@ -182,29 +189,50 @@ seq_exec(uint8_t* out, const uint8_t* __restrict__ lits,
                 no = off[seq0 + lane];
             }
             for (int g = 0; g < nseq; g += 32) {
-                const int cl = nl, cm = nm, co = no;
+                const bool valid = g + lane < nseq;
+                const int cm = valid ? nm : 0, co = no;
+                int end = valid ? nl + nm : 0;  // inclusive scan: ends
                 const int gi = g + 32 + lane;
                 if (gi < nseq) {
                     nl = ll[seq0 + gi];
                     nm = ml[seq0 + gi];
                     no = off[seq0 + gi];
                 }
-                const int cnt = min(32, nseq - g);
-                for (int k = 0; k < cnt; ++k) {
-                    const int l = __shfl_sync(0xffffffffu, cl, k);
+                for (int d = 1; d < 32; d <<= 1) {
+                    const int x = __shfl_up_sync(0xffffffffu, end, d);
+                    if (lane >= d) end += x;
+                }
+                const int p = base + end - cm;  // this lane's match start
+                const int p0 = __shfl_sync(0xffffffffu, p, 0);
+                const bool quick = valid && cm <= 32
+                                   && p - co + min(co, cm) <= p0;
+                if (quick) {
+                    uint8_t* dst = o + p;
+                    const uint8_t* src = dst - co;
+                    if (co >= cm) {
+                        for (int j = 0; j < cm; ++j) dst[j] = src[j];
+                    } else {
+                        for (int j = 0; j < cm; ++j) dst[j] = src[j % co];
+                    }
+                }
+                __syncwarp();
+                unsigned rest = __ballot_sync(0xffffffffu, valid && !quick);
+                while (rest) {
+                    const int k = __ffs(rest) - 1;
+                    rest &= rest - 1;
+                    const int pk = __shfl_sync(0xffffffffu, p, k);
                     const int m = __shfl_sync(0xffffffffu, cm, k);
                     const int d = __shfl_sync(0xffffffffu, co, k);
-                    p += l;
-                    uint8_t* dst = o + p;
+                    uint8_t* dst = o + pk;
                     const uint8_t* src = dst - d;
                     if (d >= m) {
                         for (int j = lane; j < m; j += 32) dst[j] = src[j];
                     } else {
                         for (int j = lane; j < m; j += 32) dst[j] = src[j % d];
                     }
-                    p += m;
                     __syncwarp();
                 }
+                base += __shfl_sync(0xffffffffu, end, 31);
             }
         }
         __syncthreads();

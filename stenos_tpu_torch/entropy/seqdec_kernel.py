@@ -65,11 +65,7 @@ launches = 0
 
 _P = ctypes.c_void_p
 _SIGNATURES = {"stenos_seq_decode": [_P, _P, _P, _P, ctypes.c_longlong, _P,
-                                     _P, _P, _P, _P, ctypes.c_int, _P]}
-
-# the kernel's stream source: 1 stages the stream in shared memory, 0 reads
-# aligned words from global memory (csrc/seq_decode.cu)
-STAGED = 1
+                                     _P, _P, _P, _P, _P]}
 
 
 def prep_section(sec: bytes, ctx):
@@ -309,7 +305,6 @@ def decode_sections(stream_bytes, meta, tabs, lanes):
         _cuda.check(lib.stenos_seq_decode(
             stream_bytes.data_ptr(), meta.data_ptr(), tabs.data_ptr(),
             lanes.data_ptr(), nl, *(o.data_ptr() for o in outs),
-            summ.data_ptr(), STAGED,
-            torch.cuda.current_stream(dev).cuda_stream), "seq_decode")
+            summ.data_ptr(), torch.cuda.current_stream(dev).cuda_stream), "seq_decode")
         launches += 1
     return (*outs, summ)
