@@ -11,10 +11,12 @@
 // payload), walked in order, so that the repeat-offset registers [1, 4, 8]
 // chain across its blocks on the card (stn_resolve_reps, bit for bit, its
 // error included). One launch covers every payload of a 64 MiB chunk of
-// superblocks: 14 KiB of shared memory a CTA puts 16 lanes on an SM, 2,112
+// superblocks: 18 KiB of shared memory a CTA puts 12 lanes on an SM, 1,584
 // on the card, more than a chunk holds. For each section the warp stages the
 // three decode tables (LL, OF, ML; 3 x 512 entries of sym | nb << 8 |
-// base << 16) in shared memory, then walks the backward bitstream
+// base << 16) in shared memory, with each LL and ML state's value base and
+// extra bits beside them (no code-table load in the walk's chain), then
+// walks the backward bitstream
 // (RFC 8878 §3.1.1.3.2) with a 64-bit container of two aligned 32-bit
 // stream words and 32-bit cursors (a section of a 128 KiB block has fewer
 // than 2^21 bits). The word below the container comes from a window of
@@ -149,8 +151,7 @@ struct Reader {
             --jl;
         }
         bp = w;
-        return (uint32_t)(cont >> (w - jl * 32)) &
-               (uint32_t)((1ull << k) - 1);
+        return (uint32_t)(cont >> (w - jl * 32)) & (0xffffffffu >> (32 - k));
     }
 };
 
@@ -161,7 +162,7 @@ __device__ void walk_lane(const uint8_t* __restrict__ bytes,
                           int* __restrict__ ml_out, int* __restrict__ of_out,
                           int* __restrict__ off_out,
                           long long* __restrict__ summ, int* s_tab,
-                          uint32_t* s_win) {
+                          int* s_val, uint32_t* s_win) {
     const int lane = threadIdx.x;
     int r0 = 1, r1 = 4, r2 = 8;  // repeat-offset registers, chained
     for (long long sec = s0; sec < s1; ++sec) {
@@ -169,12 +170,25 @@ __device__ void walk_lane(const uint8_t* __restrict__ bytes,
         __syncwarp();
         for (int i = lane; i < 3 * kStates; i += 32)
             s_tab[i] = tabs[sec * 3 * kStates + i];
+        // the LL and ML values of each state's code, base | extra bits <<
+        // 24, so that no code-table load follows the state's in the walk
+        for (int i = lane; i < 2 * kStates; i += 32) {
+            const bool is_ml = i >= kStates;  // ML's table is the third
+            const int code =
+                tabs[sec * 3 * kStates + i + (is_ml ? kStates : 0)] & 255;
+            if (is_ml)
+                s_val[i] = code < 53 ? kMLBase[code] | kMLBits[code] << 24 : 0;
+            else
+                s_val[i] = code < 36 ? kLLBase[code] | kLLBits[code] << 24 : 0;
+        }
         __syncwarp();
         const int* t_ll = s_tab;
         const int* t_of = s_tab + kStates;
         const int* t_ml = s_tab + 2 * kStates;
-        auto entry = [](const int* t, int s) {
-            return s >= 0 && s < kStates ? t[s] : 0;
+        const int* v_ll = s_val;
+        const int* v_ml = s_val + kStates;
+        auto entry = [](const int* t, int s, int dflt) {
+            return s >= 0 && s < kStates ? t[s] : dflt;
         };
 
         const uint8_t* s = bytes + m[0];
@@ -192,21 +206,20 @@ __device__ void walk_lane(const uint8_t* __restrict__ bytes,
         int err = 0;
         long long sum_ll = 0, sum_ml = 0, lo_src = 0;
         for (int i = 0; i < nseq; ++i) {
-            const int e_of = entry(t_of, s_of);
+            // an out-of-range state reads entry 0 (code 0: ML value 3)
+            const int e_of = entry(t_of, s_of, 0);
+            const int e_ml = entry(t_ml, s_ml, 0);
+            const int e_ll = entry(t_ll, s_ll, 0);
+            const int x_ml = entry(v_ml, s_ml, 3);
+            const int x_ll = entry(v_ll, s_ll, 0);
             int ofc = e_of & 255;
             if (ofc > 30) {
                 err |= 1;
                 ofc = 30;
             }
             const int ofv = (int)((1u << ofc) + br.read(ofc));
-            const int e_ml = entry(t_ml, s_ml);
-            const int mlc = e_ml & 255;
-            const int mv = (mlc < 53 ? kMLBase[mlc] : 0) +
-                           (int)br.read(mlc < 53 ? kMLBits[mlc] : 0);
-            const int e_ll = entry(t_ll, s_ll);
-            const int llc = e_ll & 255;
-            const int lv = (llc < 36 ? kLLBase[llc] : 0) +
-                           (int)br.read(llc < 36 ? kLLBits[llc] : 0);
+            const int mv = (x_ml & 0xffffff) + (int)br.read(x_ml >> 24);
+            const int lv = (x_ll & 0xffffff) + (int)br.read(x_ll >> 24);
             if (i + 1 < nseq) {
                 s_ll = (e_ll >> 16) + (int)br.read((e_ll >> 8) & 255);
                 s_ml = (e_ml >> 16) + (int)br.read((e_ml >> 8) & 255);
@@ -264,10 +277,11 @@ seq_decode(const uint8_t* __restrict__ bytes, const long long* __restrict__ meta
            int* __restrict__ of_out, int* __restrict__ off_out,
            long long* __restrict__ summ) {
     __shared__ int s_tab[3 * kStates];
+    __shared__ int s_val[2 * kStates];
     __shared__ uint32_t s_win[kWin];
     walk_lane(bytes, meta, tabs, lanes[2 * blockIdx.x],
               lanes[2 * blockIdx.x + 1], ll_out, ml_out, of_out, off_out,
-              summ, s_tab, s_win);
+              summ, s_tab, s_val, s_win);
 }
 
 }  // namespace

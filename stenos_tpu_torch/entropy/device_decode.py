@@ -182,26 +182,23 @@ def _decode(buf, dsizes, prep, out, device):
         execute(out, dev[7], rows_d, ll, ml, off, blocks_d, lanes_d)
 
 
-def decode_payloads_device(payloads, dsizes, device="cuda", out=None):
-    """payloads: method 2/3/4/5 superblock payloads (a zstd frame and an
-    optional sidecar each) of dsizes bytes. Returns, per payload, its
-    (dsize,) uint8 slice of one device output (out, when given: a
-    (sum(dsizes),) uint8 tensor, payload i at the sum of the dsizes before
-    it), or None when its headers are not device-decodable (counted in
-    host_ladder; the caller asks host libzstd, and its part of the output is
-    left as it was). Raises StenosError when a payload whose headers parse
-    is corrupt: the first such payload in order."""
+def prepare(buf, offs, lens, dsizes):
+    """Step 1 for the payloads buf[offs[i] : offs[i] + lens[i]] of dsizes[i]
+    bytes (buf: uint8, a multiple of 4 bytes long): (status, prep) for
+    decode_prepared. Native and without the GIL, so a caller may run it on
+    a thread while an earlier batch decodes."""
+    return native.load().zstd_prep_batch(buf, offs, lens, dsizes,
+                                         HOST_THREADS, 4 * WOUT_WORDS)
+
+
+def decode_prepared(buf, dsizes, prepared, out):
+    """Steps 2-4 of a prepare()d batch into out (a (sum(dsizes),) uint8
+    tensor, payload i at the sum of the dsizes before it). Counts the
+    ladder payloads and raises StenosError on the first corrupt payload in
+    order. Returns, per payload, whether it decoded (False: the host
+    ladder; its part of out is left as it was)."""
     global host_ladder
-    device = torch.device(device)
-    dsizes = [int(d) for d in dsizes]
-    lens = [len(p) for p in payloads]
-    offs = np.cumsum([0] + lens[:-1])
-    buf = np.zeros(max(4, -(-sum(lens) // 4) * 4), np.uint8)
-    for p, o, n in zip(payloads, offs, lens):
-        buf[o : o + n] = np.frombuffer(p, np.uint8)
-    with step("host_pass", device):
-        status, *prep = native.load().zstd_prep_batch(
-            buf, offs, lens, dsizes, HOST_THREADS, 4 * WOUT_WORDS)
+    status, *prep = prepared
     for st in status.tolist():
         if st == _CORRUPT:
             _corrupt()
@@ -212,13 +209,35 @@ def decode_payloads_device(payloads, dsizes, device="cuda", out=None):
                               "(device_decode.host_ladder counts them)",
                               RuntimeWarning, stacklevel=3)
             host_ladder += 1
+    if len(prep[0]):
+        _decode(buf, dsizes, prep, out, out.device)
+    return [st == 0 for st in status.tolist()]
+
+
+def decode_payloads_device(payloads, dsizes, device="cuda", out=None):
+    """payloads: method 2/3/4/5 superblock payloads (a zstd frame and an
+    optional sidecar each) of dsizes bytes. Returns, per payload, its
+    (dsize,) uint8 slice of one device output (out, when given: a
+    (sum(dsizes),) uint8 tensor, payload i at the sum of the dsizes before
+    it), or None when its headers are not device-decodable (counted in
+    host_ladder; the caller asks host libzstd, and its part of the output is
+    left as it was). Raises StenosError when a payload whose headers parse
+    is corrupt: the first such payload in order."""
+    device = torch.device(device)
+    dsizes = [int(d) for d in dsizes]
+    lens = [len(p) for p in payloads]
+    offs = np.cumsum([0] + lens[:-1])
+    buf = np.zeros(max(4, -(-sum(lens) // 4) * 4), np.uint8)
+    for p, o, n in zip(payloads, offs, lens):
+        buf[o : o + n] = np.frombuffer(p, np.uint8)
     if out is None:
         out = torch.empty(sum(dsizes), dtype=torch.uint8, device=device)
-    if len(prep[0]):
-        _decode(buf, dsizes, prep, out, device)
+    with step("host_pass", device):
+        prepared = prepare(buf, offs, lens, dsizes)
+    ok = decode_prepared(buf, dsizes, prepared, out)
     res, o = [], 0
-    for st, d in zip(status.tolist(), dsizes):
-        res.append(None if st else out[o : o + d])
+    for good, d in zip(ok, dsizes):
+        res.append(out[o : o + d] if good else None)
         o += d
     return res
 

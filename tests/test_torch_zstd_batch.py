@@ -295,19 +295,19 @@ def _error_code(fn):
 
 
 def test_frame_decompress_mixed_methods_in_one_batch():
-    """The frame layer sends the four zstd superblocks to one device call
-    (the METHOD_BLOCK one decodes on its own) and gives the input back, as
-    the host path does."""
+    """The frame layer sends the four zstd superblocks to one batch of the
+    device decode (one host pass, one decode_prepared; the METHOD_BLOCK one
+    decodes on its own) and gives the input back, as the host path does."""
     data, f, _ = _mixed_frame()
     calls = []
-    real = device_decode.decode_payloads_device
+    real = device_decode.decode_prepared
 
-    def spy(payloads, *a, **kw):
-        calls.append(len(payloads))
-        return real(payloads, *a, **kw)
+    def spy(buf, dsizes, *a, **kw):
+        calls.append(len(dsizes))
+        return real(buf, dsizes, *a, **kw)
 
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(device_decode, "decode_payloads_device", spy)
+        mp.setattr(device_decode, "decode_prepared", spy)
         got = frame.decompress(f, 4, engine=TorchEngine("cpu"))
     assert calls == [4]
     assert np.array_equal(got, data)
