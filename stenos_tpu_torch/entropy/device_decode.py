@@ -66,8 +66,6 @@ timing = None
 HOST_THREADS = min(8, os.cpu_count() or 1)
 _LADDER, _CORRUPT = 1, 2  # its payload statuses
 
-_pinned = None
-
 
 @contextlib.contextmanager
 def step(name, device):
@@ -86,26 +84,39 @@ def _corrupt():
     raise StenosError(ERROR_INVALID_INPUT)
 
 
-def _upload(arrays, device):
-    """One host-to-device copy of numpy arrays, each 16-byte aligned (from
-    a reused pinned buffer on a CUDA device): their device views."""
-    global _pinned
+class Staging:
+    """The host staging buffers of one caller (a decompress, or one batch):
+    pinned for a CUDA device, reused from chunk to chunk, grown on demand.
+    Callers do not share one: a buffer is rewritten by the next chunk."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.bufs = {}
+
+    def get(self, name, nbytes):
+        """A (nbytes,) uint8 host tensor, the one kept under name."""
+        if self.device.type != "cuda":
+            return torch.empty(nbytes, dtype=torch.uint8)
+        b = self.bufs.get(name)
+        if b is None or b.numel() < nbytes:
+            b = self.bufs[name] = torch.empty(nbytes, dtype=torch.uint8,
+                                              pin_memory=True)
+        return b[:nbytes]
+
+
+def _upload(arrays, staging, name):
+    """One host-to-device copy of numpy arrays, each 16-byte aligned,
+    through staging's buffer name: their device views."""
     offs, pos = [], 0
     for a in arrays:
         offs.append(pos)
         pos += -(-a.nbytes // 16) * 16
-    pos = max(pos, 16)
-    if device.type == "cuda":
-        if _pinned is None or _pinned.numel() < pos:
-            _pinned = torch.empty(pos, dtype=torch.uint8, pin_memory=True)
-        stage = _pinned[:pos]
-    else:
-        stage = torch.empty(pos, dtype=torch.uint8)
+    stage = staging.get(name, max(pos, 16))
     host = stage.numpy()
     for a, o in zip(arrays, offs):
         host[o : o + a.nbytes] = np.ascontiguousarray(a).reshape(-1).view(
             np.uint8)
-    dev = stage.to(device, copy=True)
+    dev = stage.to(staging.device, copy=True)
     return [dev[o : o + a.nbytes].view(torch.from_numpy(a[:0]).dtype)
             .view(a.shape) for a, o in zip(arrays, offs)]
 
@@ -150,9 +161,10 @@ def _layout(blocks, dsizes, meta, summ):
             np.asarray(lanes, np.int64).reshape(-1, 3))
 
 
-def _decode(buf, dsizes, prep, out, device):
+def _decode(buf, dsizes, prep, out, staging):
     """Steps 2-4 of the module docstring: prep is the host pass's blocks,
     K5 rows, anchors and lens, K7 meta and tables, host literals."""
+    device = staging.device
     blocks, rows, anch, lens, meta, tabs, lits = prep
     secs = blocks[blocks[:, 4] >= 0, 0]
     lane_sizes = np.bincount(secs, minlength=len(dsizes))
@@ -163,7 +175,7 @@ def _decode(buf, dsizes, prep, out, device):
           else np.zeros((0, TABLE), np.int32)]
     with step("h2d", device):
         dev = _upload([*k5, buf, meta, tabs, lanes7,
-                       np.append(lits, np.uint8(0))], device)
+                       np.append(lits, np.uint8(0))], staging, "inputs")
     with step("k5", device):
         rows_d = (decode_streams(*dev[:3]) if len(rows) else
                   torch.empty((0, STREAM), dtype=torch.uint8, device=device))
@@ -177,7 +189,7 @@ def _decode(buf, dsizes, prep, out, device):
         summ = np.zeros((0, 4), np.int64)
     with step("layout", device):
         xblocks, xlanes = _layout(blocks, dsizes, meta, summ)
-        blocks_d, lanes_d = _upload([xblocks, xlanes], device)
+        blocks_d, lanes_d = _upload([xblocks, xlanes], staging, "layout")
     with step("x1", device):
         execute(out, dev[7], rows_d, ll, ml, off, blocks_d, lanes_d)
 
@@ -191,12 +203,13 @@ def prepare(buf, offs, lens, dsizes):
                                          HOST_THREADS, 4 * WOUT_WORDS)
 
 
-def decode_prepared(buf, dsizes, prepared, out):
+def decode_prepared(buf, dsizes, prepared, out, staging=None):
     """Steps 2-4 of a prepare()d batch into out (a (sum(dsizes),) uint8
-    tensor, payload i at the sum of the dsizes before it). Counts the
-    ladder payloads and raises StenosError on the first corrupt payload in
-    order. Returns, per payload, whether it decoded (False: the host
-    ladder; its part of out is left as it was)."""
+    tensor, payload i at the sum of the dsizes before it), through the
+    caller's staging buffers (a Staging on out's device; a new one when
+    None). Counts the ladder payloads and raises StenosError on the first
+    corrupt payload in order. Returns, per payload, whether it decoded
+    (False: the host ladder; its part of out is left as it was)."""
     global host_ladder
     status, *prep = prepared
     for st in status.tolist():
@@ -210,7 +223,7 @@ def decode_prepared(buf, dsizes, prepared, out):
                               RuntimeWarning, stacklevel=3)
             host_ladder += 1
     if len(prep[0]):
-        _decode(buf, dsizes, prep, out, out.device)
+        _decode(buf, dsizes, prep, out, staging or Staging(out.device))
     return [st == 0 for st in status.tolist()]
 
 

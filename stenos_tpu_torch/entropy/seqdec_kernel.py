@@ -84,8 +84,8 @@ def prep_section(sec: bytes, ctx):
             "tls": (int(meta[3]), int(meta[4]), int(meta[5])), "tab": tab}
 
 
-def pack_sections_np(preps, lane_sizes=None):
-    """prep_section dicts -> (stream_bytes, meta, tabs, lanes) as numpy, the
+def pack_sections(preps, device, lane_sizes=None):
+    """prep_section dicts -> (stream_bytes, meta, tabs, lanes) on device, the
     sequences of section i at [seq_off_i, seq_off_i + nseq_i); lane_sizes:
     sections a lane, in order (default: one lane of all). The stream buffer
     is padded to a multiple of 4 bytes."""
@@ -103,13 +103,8 @@ def pack_sections_np(preps, lane_sizes=None):
     sizes = [n] if lane_sizes is None else list(lane_sizes)
     ends = np.cumsum(sizes, dtype=np.int64)
     lanes = np.stack([ends - sizes, ends], 1).astype(np.int64)
-    return buf, meta, tabs, lanes.reshape(-1, 2)
-
-
-def pack_sections(preps, device, lane_sizes=None):
-    """pack_sections_np's arrays as tensors on device."""
-    return tuple(torch.from_numpy(a.copy()).to(device)
-                 for a in pack_sections_np(preps, lane_sizes))
+    return tuple(torch.from_numpy(a).to(device)
+                 for a in (buf, meta, tabs, lanes.reshape(-1, 2)))
 
 
 def _windows(stream_bytes, soff, slen):

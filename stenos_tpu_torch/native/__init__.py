@@ -9,7 +9,7 @@ Only the entry points the port's paths call are bound: lz4_guess_size,
 parse_rows, parse_rows_batch and block_decode (the block codec),
 huff_lengths (the device container's entropy stage), and for the zstd
 entropy stage: huff_tree_descs, matchiness, match_parse, encode_block and
-recode_reps_enc (encode); zstd_ctx, zstd_dtables, resolve_reps, huf_lits,
+recode_reps_enc (encode); zstd_ctx, zstd_dtables, resolve_reps,
 huf_anchors, seq_ops and zstd_prep_batch (decode).
 """
 
@@ -58,7 +58,6 @@ class _Native:
                 ("stn_zstd_dtables", [_P, _SZ, _P, _P, _P]),
                 ("stn_resolve_reps", [_SZ, _P, _P, _P, _P]),
                 ("stn_recode_reps_enc", [_SZ, _P, _P, _P, _P]),
-                ("stn_huf_lits", [_P, _SZ, _I, _I, _SZ, _P, _P]),
                 ("stn_huf_anchors", [_P, _SZ, _SZ, _P, _P, _P]),
                 ("stn_seq_ops", [_SZ, _P, _P, _P, _I64, _I64, _I64, _I64,
                                  ctypes.c_int32, _P, _SZ]),
@@ -252,18 +251,6 @@ class _Native:
         if r < 0:
             return int(r)
         return off[:n]
-
-    def huf_lits(self, src, four: bool, treeless: bool, regenerated: int,
-                 ctx):
-        """Huffman literals payload (tree description and streams) ->
-        uint8 array, or a negative error."""
-        src = bytes(src)
-        out = np.empty(max(regenerated, 1), np.uint8)
-        r = self._lib.stn_huf_lits(src, len(src), int(four), int(treeless),
-                                   regenerated, _ptr(ctx), _ptr(out))
-        if r < 0:
-            return int(r)
-        return out[:regenerated]
 
     def huf_anchors(self, sec, regenerated: int, ctx):
         """Length-only anchor scan of a 4-stream Huffman literals section
