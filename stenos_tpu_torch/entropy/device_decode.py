@@ -48,7 +48,7 @@ import torch
 from .. import native
 from ..constants import ERROR_INVALID_INPUT
 from ..frame import StenosError
-from .huff_decode_kernel import TABLE, decode_streams, decode_tables
+from .huff_decode_kernel import decode_streams
 from .huff_kernel import STREAM, WOUT_WORDS
 from .seq_exec import execute
 from .seqdec_kernel import decode_sections
@@ -163,16 +163,16 @@ def _layout(blocks, dsizes, meta, summ):
 
 def _decode(buf, dsizes, prep, out, staging):
     """Steps 2-4 of the module docstring: prep is the host pass's blocks,
-    K5 rows, anchors and lens, K7 meta and tables, host literals."""
+    K5 rows, anchors, code lengths and tables, K7 meta and tables, host
+    literals."""
     device = staging.device
-    blocks, rows, anch, lens, meta, tabs, lits = prep
+    blocks, rows, anch, _, tabs5, meta, tabs, lits = prep
     secs = blocks[blocks[:, 4] >= 0, 0]
     lane_sizes = np.bincount(secs, minlength=len(dsizes))
     lane_sizes = lane_sizes[lane_sizes > 0]
     ends = np.cumsum(lane_sizes)
     lanes7 = np.stack([ends - lane_sizes, ends], 1).astype(np.int64)
-    k5 = [rows, anch, np.repeat(decode_tables(lens), 4, axis=0) if len(lens)
-          else np.zeros((0, TABLE), np.int32)]
+    k5 = [rows, anch, tabs5]
     with step("h2d", device):
         dev = _upload([*k5, buf, meta, tabs, lanes7,
                        np.append(lits, np.uint8(0))], staging, "inputs")

@@ -71,7 +71,7 @@ class _Native:
                                              _P, _P]
         cdll.stn_zstd_prep_fetch.restype = None
         cdll.stn_zstd_prep_fetch.argtypes = [_P, _P, _P, _P, _P, _I64, _P,
-                                             _P, _P, _P, _P]
+                                             _P, _P, _P, _P, _P]
         cdll.stn_zstd_prep_free.restype = None
         cdll.stn_zstd_prep_free.argtypes = [_P]
         cdll.stn_matchiness.restype = ctypes.c_double
@@ -297,9 +297,10 @@ class _Native:
         (nblk, 5) int64 [payload, regenerated, host literal offset, job or
         -1, section or -1], rows (4 njobs, width) uint8 (each K5 job's 4
         streams, zero-padded to the longest, a multiple of 4), anchors
-        (4 njobs, 256) int32, lens (njobs, 256) uint8, meta (nsec, 8) int64
-        (K7's, stream offsets into buf), tabs (nsec, 1536) int32 and the
-        host literals (nlits,) uint8). buf: a uint8 array."""
+        (4 njobs, 256) int32, lens (njobs, 256) uint8, K5's tables (4 njobs,
+        304) int32 (decode_tables of each job's lens, a row a stream), meta
+        (nsec, 8) int64 (K7's, stream offsets into buf), tabs (nsec, 1536)
+        int32 and the host literals (nlits,) uint8). buf: a uint8 array."""
         offs = np.ascontiguousarray(offs, np.int64)
         lens = np.ascontiguousarray(lens, np.int64)
         dsizes = np.ascontiguousarray(dsizes, np.int64)
@@ -317,6 +318,7 @@ class _Native:
                    np.empty((4 * nj, width), np.uint8),
                    np.empty((4 * nj, 256), np.int32),
                    np.empty((nj, 256), np.uint8),
+                   np.empty((4 * nj, 304), np.int32),
                    np.empty((ns, 8), np.int64),
                    np.empty((ns, 3 * 512), np.int32),
                    np.empty(nl, np.uint8))

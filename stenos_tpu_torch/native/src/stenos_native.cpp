@@ -3425,6 +3425,39 @@ bool prep_spans(const uint8_t* pl, int64_t p, int64_t lit_end, PrepJob* j) {
     return true;
 }
 
+// huff_decode_kernel.py decode_tables of one job's code lengths: per length
+// l the first canonical code base_l, the count n_l and offset_l (the rank of
+// the first length-l symbol when symbols sort by length descending, then
+// symbol ascending), then that symbol list from column 40, zero-filled.
+void prep_k5_table(const uint8_t* lens, int32_t* out) {
+    constexpr int kMaxBits = 11;
+    int64_t nl[kMaxBits + 1] = {0}, base[kMaxBits + 1] = {0};
+    for (int s = 0; s < 256; ++s)
+        if (lens[s] <= kMaxBits) ++nl[lens[s]];
+    int64_t code = 0;
+    for (int l = kMaxBits, prev = kMaxBits; l >= 1; prev = l--) {
+        code >>= (prev - l);
+        base[l] = code;
+        code += nl[l];
+    }
+    std::memset(out, 0, 304 * sizeof(int32_t));
+    int64_t longer = 0, used = 0;
+    for (int l = kMaxBits; l >= 1; --l) {
+        out[l] = (int32_t)base[l];
+        out[12 + l] = (int32_t)nl[l];
+        out[24 + l] = (int32_t)longer;
+        longer += nl[l];
+    }
+    used = longer;
+    // a stable sort on (11 - length), unused symbols (length 0) last
+    int64_t k = 0;
+    for (int key = kMaxBits - 15; key <= kMaxBits + 1 && k < used; ++key)
+        for (int s = 0; s < 256 && k < used; ++s) {
+            const int ks = lens[s] ? kMaxBits - lens[s] : kMaxBits + 1;
+            if (ks == key) out[40 + k++] = s;
+        }
+}
+
 int prep_payload(const uint8_t* pl, size_t n, int64_t dsize,
                  int64_t max_stream, uint8_t* ctx, PrepPayload* out) {
     bool have = false;
@@ -3566,7 +3599,9 @@ EXPORT void* stn_zstd_prep_batch(const uint8_t* buf, const int64_t* offs,
 //   blocks (nblk, 5) int64  payload, regenerated, host literal offset (into
 //                           lits), job or -1, section or -1
 //   rows (4 njobs, width) uint8  each job's 4 streams, zero-padded
-//   anchors (4 njobs, 256) int32, lens (njobs, 256) uint8
+//   anchors (4 njobs, 256) int32, lens (njobs, 256) uint8, tables
+//   (4 njobs, 304) int32 (K5's decode tables of each job's lens, a row a
+//   stream)
 //   meta (nsec, 8) int64    stream offset (into buf), stream length, bp0,
 //                           nseq, first sequence, tl_ll, tl_of, tl_ml
 //   tabs (nsec, 1536) int32, lits (host literal bytes)
@@ -3574,7 +3609,8 @@ EXPORT void stn_zstd_prep_fetch(void* handle, const uint8_t* buf,
                                 const int64_t* offs, int64_t* blocks,
                                 uint8_t* rows, int64_t width,
                                 int32_t* anchors, uint8_t* lens,
-                                int64_t* meta, int32_t* tabs, uint8_t* lits) {
+                                int32_t* k5tabs, int64_t* meta,
+                                int32_t* tabs, uint8_t* lits) {
     const PrepBatch* h = (const PrepBatch*)handle;
     int64_t nb = 0, nj = 0, ns = 0, nl = 0, seq = 0;
     for (size_t i = 0; i < h->p.size(); ++i) {
@@ -3596,6 +3632,10 @@ EXPORT void stn_zstd_prep_fetch(void* handle, const uint8_t* buf,
             }
             std::memcpy(anchors + 1024 * nj, j.anch, sizeof j.anch);
             std::memcpy(lens + 256 * nj, j.lens, 256);
+            prep_k5_table(j.lens, k5tabs + 4 * 304 * nj);
+            for (int s = 1; s < 4; ++s)
+                std::memcpy(k5tabs + (4 * nj + s) * 304,
+                            k5tabs + 4 * 304 * nj, 304 * sizeof(int32_t));
             ++nj;
         }
         for (const PrepSec& s : pp.secs) {

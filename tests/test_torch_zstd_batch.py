@@ -28,6 +28,8 @@ from stenos_tpu_torch.constants import (ERROR_INVALID_INPUT,
 from stenos_tpu_torch.engine import TorchEngine
 from stenos_tpu_torch.entropy import (device_decode, seq_exec,
                                       seqdec_kernel, zstd_frame)
+from stenos_tpu_torch.entropy.huff_decode_kernel import decode_tables
+from stenos_tpu_torch.entropy.huff_kernel import WOUT_WORDS
 from stenos_tpu_torch.entropy.sequences import encode_sequences
 from stenos_tpu_torch.entropy.zstd_parse import parse_frame
 from stenos_tpu_torch.host import zstd as zstd_host
@@ -94,6 +96,19 @@ def test_decode_payloads_device_matches_jax(payloads, batch, i):
     want = ref_decode.decode_payload_device(payload, len(data),
                                             interpret=True)
     assert np.array_equal(np.asarray(want), got.numpy()), name
+
+
+def test_native_host_pass_k5_tables_equal_decode_tables(payloads):
+    """The native host pass builds K5's decode tables of each job's code
+    lengths, one row a stream, as huff_decode_kernel.decode_tables does."""
+    lens = [len(p) for _, p, _ in payloads]
+    buf = np.frombuffer(b"".join(p for _, p, _ in payloads) + b"\0" * 4,
+                        np.uint8)
+    status, blocks, rows, anch, jlens, tables, *_ = lib.zstd_prep_batch(
+        buf, np.cumsum([0] + lens[:-1]), lens,
+        [len(d) for _, _, d in payloads], 2, 4 * WOUT_WORDS)
+    assert not status.any() and len(jlens) >= 4
+    assert np.array_equal(tables, np.repeat(decode_tables(jlens), 4, axis=0))
 
 
 def test_batch_hands_back_the_unparseable_and_raises_on_the_corrupt(
