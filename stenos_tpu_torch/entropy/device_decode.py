@@ -7,15 +7,17 @@ TRANSPOSED_DELTA_ZSTD, this package's frames and libzstd's alike.
 decode_payloads_device decodes a batch of payloads (the frame layer gathers
 64 MiB of superblocks) with one launch each of three kernels:
 
-1. A host pass over each payload's headers and tables, in native code on a
-   few threads (stn_zstd_prep_batch: the parse of sidecar.py and
-   zstd_parse.py). Per compressed block, the literals are a job of the
-   anchored Huffman decode (K5, huff_decode_kernel.py) when they are 4
-   Huffman streams with anchors, from the decode-anchor sidecar or a
-   length-only scan (stn_huf_anchors, the route of libzstd's frames), and
-   host bytes otherwise (raw, RLE, native huf_lits); the sequences section
-   gets its FSE tables (stn_zstd_dtables, the Repeat_Mode tables chained
-   through the frame's blocks in order).
+1. prepare: a host pass over each payload's headers and tables, in native
+   code on a few threads (stn_zstd_prep_batch: the sidecar layout of
+   sidecar.py, the frame parse of zstd_parse.py). Per compressed block, the
+   literals are a job of the anchored Huffman decode (K5,
+   huff_decode_kernel.py, with its decode tables) when they are 4 Huffman
+   streams with anchors, from the decode-anchor sidecar or a length-only
+   scan (stn_huf_anchors, the route of libzstd's frames), and host bytes
+   otherwise (raw, RLE, native huf_lits); the sequences section gets its
+   FSE tables (stn_zstd_dtables, the Repeat_Mode tables chained through
+   the frame's blocks in order). The frame layer runs it on a thread while
+   the batch before decodes; decode_prepared does steps 2-4.
 2. One host-to-device copy of the packed inputs; K5 over every job's 4
    streams, and K7 (seqdec_kernel.py) with one lane a payload: the raw
    sequences, the repeat offsets resolved on the card (chained across the
