@@ -13,7 +13,7 @@ through decode_sections_plain, vectorised over sections (then lanes) with a
 loop over sequences. Semantics are the TPU kernel's: a read of k bits at
 cursor bp yields bits [bp - k, bp), zeros below bit 0 and past the stream;
 error bit 1 marks an OF code over 30, bit 2 a stream not consumed exactly,
-and bit 4 (new here) a repeat offset that resolves to 0 or less (the
+and bit 4 (the port's own) a repeat offset that resolves to 0 or less (the
 registers take it and the walk goes on). The TPU kernel's lanes of 128
 sections, chunks of 512 sequences and stream-word buckets were its VMEM
 shapes; here any section of a 128 KiB block decodes.
