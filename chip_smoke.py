@@ -914,11 +914,12 @@ def zstd_exact(name, k, p):
 
 
 def seq_decode_bytes(args):
-    """K7's bytes: streams, meta, tables and lanes in; ll, ml, offset
-    values, offsets (16 B a sequence) and the summaries (32 B a section)
-    out."""
-    stream, meta, tabs, lanes = args
-    return (stream.numel() + meta.numel() * 8 + tabs.numel() * 4
+    """K7's bytes: each section's sequences bitstream (not the rest of the
+    payloads' buffer: literals, headers, sidecars), meta, tables and lanes
+    in; ll, ml, offset values, offsets (16 B a sequence) and the summaries
+    (32 B a section) out."""
+    _, meta, tabs, lanes = args
+    return (int(meta[:, 1].sum()) + meta.numel() * 8 + tabs.numel() * 4
             + lanes.numel() * 8 + 16 * int(meta[:, 3].sum())
             + 32 * meta.shape[0])
 
@@ -1074,13 +1075,19 @@ def phase_zstd(dev):
         pays, sizes = frame_payloads(frame_b, 1, CHUNK_BYTES // B)
         lens = [len(p) for p in pays]
         buf = np.frombuffer(b"".join(pays) + b"\0" * 4, np.uint8)
+        # the host pass of the first chunk on one thread and as decompress
+        # runs it (up to HOST_THREADS, one a 8 anchor scans): the median
+        # of 3 each, ms a superblock
         threads = {}
         for n in (1, device_decode.HOST_THREADS):
-            t6 = time.perf_counter()
-            native.load().zstd_prep_batch(buf, np.cumsum([0] + lens[:-1]),
-                                          lens, sizes, n,
-                                          4 * huff_kernel.WOUT_WORDS)
-            threads[n] = (time.perf_counter() - t6) * 1e3 / len(pays)
+            reps = []
+            for _ in range(3):
+                t6 = time.perf_counter()
+                scans = native.load().zstd_prep_batch(
+                    buf, np.cumsum([0] + lens[:-1]), lens, sizes, n,
+                    4 * huff_kernel.WOUT_WORDS)[-1]
+                reps.append((time.perf_counter() - t6) * 1e3 / len(pays))
+            threads[n] = sorted(reps)[1]
         t0h = time.perf_counter()
         host_back = stt.decompress(frame_b, 1, engine=None)
         host_s = time.perf_counter() - t0h
@@ -1096,6 +1103,7 @@ def phase_zstd(dev):
                        "split_ms_per_superblock": {
                            k: v / (TEXT_MB * 8) for k, v in split.items()},
                        "host_pass_ms_per_superblock_by_threads": threads,
+                       "anchor_scans_first_chunk": scans,
                        "k7_call": k7.calls[0][0], "x1_call": x1.calls[0][0],
                        "k5_call": k5.calls[0][0]}
         del host_back, frame_b
@@ -1226,6 +1234,29 @@ def phase_zstd(dev):
         "plain_ms": plain_ms[id(a1)], "bytes": seq_exec_bytes(a1),
         "lanes": a1[7].shape[0], "blocks": a1[6].shape[0],
         "staged_lanes": int(a1[7][:, 2].sum()), "sequences": a1[3].numel()}
+    # X1's literal pass alone: the same call with every match length and
+    # offset 0 and each block as long as its literals (the match pass then
+    # copies nothing); and the byte-copy literal pass, on the same inputs,
+    # its output held against the kernel's
+    x1z = fresh(a1)
+    x1z[4].zero_()
+    x1z[5].zero_()
+    x1z[6][:, 1] = x1z[6][:, 3]
+    seq_exec.execute_plain(*fresh(x1z))  # a valid call: the plain one takes it
+    t1 = times["seq_exec"]
+    t1["literal_pass_ms"] = cuda_ms(lambda: seq_exec.execute(*x1z), 10)
+    got = seq_exec.execute(*fresh(a1))
+    seq_exec.BYTE_LITS = 1
+    try:
+        err["seq_exec"] = max(err["seq_exec"], zstd_exact(
+            "X1, byte-copy literals", (seq_exec.execute(*fresh(a1)),),
+            (got,)))
+        t1["ms_byte_literals"] = cuda_ms(lambda: seq_exec.execute(*x1), 10)
+        t1["literal_pass_ms_byte_literals"] = cuda_ms(
+            lambda: seq_exec.execute(*x1z), 10)
+    finally:
+        seq_exec.BYTE_LITS = 0
+    del got, x1z
     check(not any(err.values()), f"zstd kernels differ: {err}")
     for name, t in times.items():
         t["bound_ms"] = t["bytes"] / HBM_BYTES_PER_S * 1e3

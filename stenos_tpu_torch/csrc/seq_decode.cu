@@ -40,8 +40,8 @@
 // sequence, and per section [sum ll, sum ml, lowest match source relative to
 // the block start (0 without sequences), error bits].
 //
-// Bound: bytes (stream, tables and metadata in, 16 bytes a sequence and 32
-// a section out). The real limit is the serial chain of one walk: dependent
+// Bound: bytes (each section's bitstream, tables and metadata in, 16 bytes
+// a sequence and 32 a section out). The real limit is the serial chain of one walk: dependent
 // shared-memory table loads and bit extractions, a few tens of cycles a
 // read. The chunk-wide launch runs the walks of all its payloads side by
 // side, so a call takes about as long as its longest section.

@@ -8,14 +8,18 @@
 //
 // One launch covers every block of a 64 MiB chunk of payloads. A CTA of 8
 // warps is a lane; a lane runs its blocks in order. Per block, two passes:
-//   (a) literals: the CTA scans ll and ll + ml over tiles of 256 sequences
-//       (warp shuffles, then the 8 warp totals), and each thread copies its
-//       sequence's literals to their final place; the trailing literals
-//       follow in coalesced copies by the whole CTA. Literals come from the
-//       host literal buffer or in place from the anchored Huffman decode's
-//       rows (K5: a block's literals are its 4 stream rows, ceil(n/4)
-//       symbols each, the last one the rest). Literals do not depend on
-//       matches, so this pass is parallel.
+//   (a) literals: the CTA scans ll and ll + ml over tiles of 1,024
+//       sequences (4 a thread; warp shuffles, then the 8 warp totals),
+//       which gives each sequence's first literal and its output position.
+//       Then it reads the tile's literals, one contiguous span, in aligned
+//       16-byte words, a word a thread (coalesced), and writes each byte to
+//       its place: its sequence is found by a binary search of the tile's
+//       first-literal indices in shared memory, once a word. The trailing
+//       literals follow the same way. Literals come from the host literal
+//       buffer or in place from the anchored Huffman decode's rows (K5: a
+//       block's literals are its 4 stream rows, ceil(n/4) symbols each, the
+//       last one the rest; a row is its own span). Literals do not depend
+//       on matches, so this pass is parallel.
 //   (b) matches: warp 0, out[p + i] = out[p - off + (i % off)] for i < ml
 //       (every source byte lies before p and is final by then, so an
 //       overlapping match is one parallel copy too). In a tile of 32
@@ -49,44 +53,49 @@ constexpr int kMaxStaged = 131072;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr long long kRowBytes = 32768;  // a K5 output row
+constexpr int kSeqs = 4;                  // sequences a thread scans
+constexpr int kTile = kSeqs * kThreads;   // sequences a literal tile
 
-// Literals [t0, t0 + n) of a block to dst, by one thread. row < 0: the
-// literals are lit[0, lit_len); else rows row .. row + 3, s1 a row.
-__device__ void copy_lits(uint8_t* dst, const uint8_t* lit,
-                          const uint8_t* rows, long long row, int s1, int t0,
-                          int n) {
-    if (row < 0) {
-        for (int j = 0; j < n; ++j) dst[j] = lit[t0 + j];
-        return;
-    }
-    int r = t0 / s1, c = t0 - r * s1;
-    const uint8_t* s = rows + (row + r) * kRowBytes + c;
-    for (int j = 0; j < n; ++j) {
-        if (c == s1) {
-            c = 0;
-            s = rows + (row + ++r) * kRowBytes;
-        }
-        dst[j] = *s++;
-        ++c;
+// Byte k (0-15) of a 16-byte word.
+__device__ __forceinline__ uint32_t word_byte(const uint4& v, int k) {
+    const uint32_t w = k < 8 ? (k < 4 ? v.x : v.y) : (k < 12 ? v.z : v.w);
+    return (w >> ((k & 3) * 8)) & 0xFFu;
+}
+
+// For the literals [x0, x1) of a span whose literal x lies at src[x]:
+// the CTA loads the aligned 16-byte words that hold them, a word a thread
+// (coalesced), and calls put(xb, k0, k1, v) with each word v, the index xb
+// of its byte 0 and its bytes [k0, k1) that are in the range. The words
+// stay inside the buffer (it starts 16-byte aligned and the word holds one
+// of its bytes).
+template <class Put>
+__device__ void span_words(const uint8_t* src, int x0, int x1, Put put) {
+    if (x0 >= x1) return;
+    const uintptr_t a0 = (uintptr_t)(src + x0) & ~(uintptr_t)15;
+    const int nw = (int)(((uintptr_t)(src + x1) - a0 + 15) >> 4);
+    const int xa = (int)((const uint8_t*)a0 - src);
+    for (int w = threadIdx.x; w < nw; w += kThreads) {
+        const uint4 v = __ldg((const uint4*)a0 + w);
+        const int xb = xa + 16 * w;
+        put(xb, max(0, x0 - xb), min(16, x1 - xb), v);
     }
 }
 
-// The same, by the whole CTA in coalesced byte copies (one row at a time).
-__device__ void copy_lits_cta(uint8_t* dst, const uint8_t* lit,
-                              const uint8_t* rows, long long row, int s1,
-                              int t0, int n) {
+// span_words over the block's literals [x0, x1): the host literal buffer
+// lit, or (row >= 0) K5's rows row .. row + 3, s1 literals a row and the
+// rest in the last.
+template <class Put>
+__device__ void lit_words(const uint8_t* lit, const uint8_t* rows,
+                          long long row, int s1, int x0, int x1, Put put) {
     if (row < 0) {
-        for (int j = threadIdx.x; j < n; j += kThreads) dst[j] = lit[t0 + j];
+        span_words(lit, x0, x1, put);
         return;
     }
-    int t = t0;
-    while (t < t0 + n) {
-        const int r = t / s1, c = t - r * s1;
-        const int len = min(s1 - c, t0 + n - t);
-        const uint8_t* s = rows + (row + r) * kRowBytes + c;
-        uint8_t* d = dst + (t - t0);
-        for (int j = threadIdx.x; j < len; j += kThreads) d[j] = s[j];
-        t += len;
+    for (int r = 0; r < 4; ++r) {
+        const int lo = max(x0, r * s1), hi = min(x1, (r + 1) * s1);
+        if (lo < hi)
+            span_words(rows + (row + r) * kRowBytes - (long long)r * s1, lo,
+                       hi, put);
     }
 }
 
@@ -137,14 +146,55 @@ __device__ void scan2(int& a, int& b, int& ta, int& tb, int* s_a, int* s_b) {
     __syncthreads();
 }
 
+// Literals [t0, t0 + n) of a block to dst, by one thread. row < 0: the
+// literals are lit[0, lit_len); else rows row .. row + 3, s1 a row.
+__device__ void copy_lits(uint8_t* dst, const uint8_t* lit,
+                          const uint8_t* rows, long long row, int s1, int t0,
+                          int n) {
+    if (row < 0) {
+        for (int j = 0; j < n; ++j) dst[j] = lit[t0 + j];
+        return;
+    }
+    int r = t0 / s1, c = t0 - r * s1;
+    const uint8_t* s = rows + (row + r) * kRowBytes + c;
+    for (int j = 0; j < n; ++j) {
+        if (c == s1) {
+            c = 0;
+            s = rows + (row + ++r) * kRowBytes;
+        }
+        dst[j] = *s++;
+        ++c;
+    }
+}
+
+// The same, by the whole CTA in coalesced byte copies (one row at a time).
+__device__ void copy_lits_cta(uint8_t* dst, const uint8_t* lit,
+                              const uint8_t* rows, long long row, int s1,
+                              int t0, int n) {
+    if (row < 0) {
+        for (int j = threadIdx.x; j < n; j += kThreads) dst[j] = lit[t0 + j];
+        return;
+    }
+    int t = t0;
+    while (t < t0 + n) {
+        const int r = t / s1, c = t - r * s1;
+        const int len = min(s1 - c, t0 + n - t);
+        const uint8_t* s = rows + (row + r) * kRowBytes + c;
+        uint8_t* d = dst + (t - t0);
+        for (int j = threadIdx.x; j < len; j += kThreads) d[j] = s[j];
+        t += len;
+    }
+}
+
 __global__ void __launch_bounds__(kThreads)
 seq_exec(uint8_t* out, const uint8_t* __restrict__ lits,
          const uint8_t* __restrict__ rows, const int* __restrict__ ll,
          const int* __restrict__ ml, const int* __restrict__ off,
          const long long* __restrict__ blocks,
-         const long long* __restrict__ lanes) {
+         const long long* __restrict__ lanes, int byte_lits) {
     extern __shared__ uint4 s_dyn[];
     __shared__ int s_a[kWarps + 1], s_b[kWarps + 1];
+    __shared__ int s_lp[kTile + 1], s_dp[kTile];
     uint8_t* s_out = (uint8_t*)s_dyn;
     const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
     const long long* ln = lanes + 3 * blockIdx.x;
@@ -159,8 +209,13 @@ seq_exec(uint8_t* out, const uint8_t* __restrict__ lits,
         const uint8_t* lit = lits + blk[2];
         uint8_t* o = staged ? s_out : out + blk[0];
 
-        // (a) literals to their final places
+        // (a) literals to their final places, a tile of kTile sequences
+        // at a time: the scan gives each sequence's first literal (s_lp,
+        // from the tile's first) and its output position (s_dp); the CTA
+        // reads the tile's literals in 16-byte words and each byte finds
+        // its sequence by a binary search of s_lp (then steps on)
         int c_ll = 0, c_pos = 0;  // sums over the tiles before
+        if (byte_lits) {  // the byte-copy route, kept for one timed comparison
         for (int g = 0; g < nseq; g += kThreads) {
             const int i = g + t;
             int l = i < nseq ? ll[seq0 + i] : 0;
@@ -174,6 +229,50 @@ seq_exec(uint8_t* out, const uint8_t* __restrict__ lits,
             c_pos += tp;
         }
         copy_lits_cta(o + c_pos, lit, rows, row, s1, c_ll, lit_len - c_ll);
+        } else {
+        for (int g = 0; g < nseq; g += kTile) {
+            int l[kSeqs], p[kSeqs], a = 0, q = 0;
+#pragma unroll
+            for (int j = 0; j < kSeqs; ++j) {
+                const int i = g + kSeqs * t + j;
+                l[j] = i < nseq ? ll[seq0 + i] : 0;
+                p[j] = l[j] + (i < nseq ? ml[seq0 + i] : 0);
+                a += l[j];
+                q += p[j];
+            }
+            int tl, tp;
+            scan2(a, q, tl, tp, s_a, s_b);
+#pragma unroll
+            for (int j = 0; j < kSeqs; ++j) {
+                s_lp[kSeqs * t + j] = a;
+                s_dp[kSeqs * t + j] = c_pos + q;
+                a += l[j];
+                q += p[j];
+            }
+            if (t == 0) s_lp[kTile] = tl;
+            __syncthreads();
+            lit_words(lit, rows, row, s1, c_ll, c_ll + tl,
+                      [&](int xb, int k0, int k1, const uint4& v) {
+                int y = xb + k0 - c_ll, lo = 0, hi = kTile;
+                while (hi - lo > 1) {  // the last i with s_lp[i] <= y
+                    const int mid = (lo + hi) >> 1;
+                    if (s_lp[mid] <= y) lo = mid; else hi = mid;
+                }
+                for (int k = k0; k < k1; ++k, ++y) {
+                    while (s_lp[lo + 1] <= y) ++lo;
+                    o[s_dp[lo] + y - s_lp[lo]] = (uint8_t)word_byte(v, k);
+                }
+            });
+            c_ll += tl;
+            c_pos += tp;
+            __syncthreads();
+        }
+        lit_words(lit, rows, row, s1, c_ll, lit_len,  // the trailing ones
+                  [&](int xb, int k0, int k1, const uint4& v) {
+            for (int k = k0; k < k1; ++k)
+                o[c_pos + xb + k - c_ll] = (uint8_t)word_byte(v, k);
+        });
+        }
         __syncthreads();
 
         // (b) matches, by warp 0, a tile of 32 sequences at a time: the
@@ -216,7 +315,8 @@ seq_exec(uint8_t* out, const uint8_t* __restrict__ lits,
                     }
                 }
                 __syncwarp();
-                unsigned rest = __ballot_sync(0xffffffffu, valid && !quick);
+                unsigned rest = __ballot_sync(0xffffffffu,
+                                              valid && cm > 0 && !quick);
                 while (rest) {
                     const int k = __ffs(rest) - 1;
                     rest &= rest - 1;
@@ -267,7 +367,7 @@ extern "C" int stenos_seq_exec(void* out, const void* lits, const void* rows,
                                const void* ll, const void* ml, const void* off,
                                const void* blocks, const void* lanes,
                                long long nlanes, long long staged_bytes,
-                               void* stream) {
+                               int byte_lits, void* stream) {
     if (staged_bytes > kMaxStaged) return (int)cudaErrorInvalidValue;
     const int shared = (int)((staged_bytes + 15) & ~15LL);
     cudaError_t err = cudaFuncSetAttribute(
@@ -276,7 +376,7 @@ extern "C" int stenos_seq_exec(void* out, const void* lits, const void* rows,
     seq_exec<<<(unsigned)nlanes, kThreads, shared, (cudaStream_t)stream>>>(
         (uint8_t*)out, (const uint8_t*)lits, (const uint8_t*)rows,
         (const int*)ll, (const int*)ml, (const int*)off,
-        (const long long*)blocks, (const long long*)lanes);
+        (const long long*)blocks, (const long long*)lanes, byte_lits);
     return (int)cudaGetLastError();
 }
 #endif

@@ -8,7 +8,7 @@ decode_payloads_device decodes a batch of payloads (the frame layer gathers
 64 MiB of superblocks) with one launch each of three kernels:
 
 1. prepare: a host pass over each payload's headers and tables, in native
-   code on a few threads (stn_zstd_prep_batch: the sidecar layout of
+   code (stn_zstd_prep_batch: the sidecar layout of
    sidecar.py, the frame parse of zstd_parse.py). Per compressed block, the
    literals are a job of the anchored Huffman decode (K5,
    huff_decode_kernel.py, with its decode tables) when they are 4 Huffman
@@ -16,8 +16,10 @@ decode_payloads_device decodes a batch of payloads (the frame layer gathers
    scan (stn_huf_anchors, the route of libzstd's frames), and host bytes
    otherwise (raw, RLE, native huf_lits); the sequences section gets its
    FSE tables (stn_zstd_dtables, the Repeat_Mode tables chained through
-   the frame's blocks in order). The frame layer runs it on a thread while
-   the batch before decodes; decode_prepared does steps 2-4.
+   the frame's blocks in order). The anchor scans are its costly part: it
+   runs on one thread, and on up to HOST_THREADS when the batch has
+   scans to run (one thread for each 8). The frame layer runs it on a
+   thread while the batch before decodes; decode_prepared does steps 2-4.
 2. One host-to-device copy of the packed inputs; K5 over every job's 4
    streams, and K7 (seqdec_kernel.py) with one lane a payload: the raw
    sequences, the repeat offsets resolved on the card (chained across the
@@ -64,7 +66,7 @@ host_ladder = 0
 # (chip_smoke.py does); each step then ends in a device synchronize
 timing = None
 
-# threads of the native host pass
+# the most threads of the native host pass
 HOST_THREADS = min(8, os.cpu_count() or 1)
 _LADDER, _CORRUPT = 1, 2  # its payload statuses
 
@@ -168,7 +170,7 @@ def _decode(buf, dsizes, prep, out, staging):
     K5 rows, anchors, code lengths and tables, K7 meta and tables, host
     literals."""
     device = staging.device
-    blocks, rows, anch, _, tabs5, meta, tabs, lits = prep
+    blocks, rows, anch, _, tabs5, meta, tabs, lits, _ = prep
     secs = blocks[blocks[:, 4] >= 0, 0]
     lane_sizes = np.bincount(secs, minlength=len(dsizes))
     lane_sizes = lane_sizes[lane_sizes > 0]
@@ -229,15 +231,13 @@ def decode_prepared(buf, dsizes, prepared, out, staging=None):
     return [st == 0 for st in status.tolist()]
 
 
-def decode_payloads_device(payloads, dsizes, device="cuda", out=None):
+def decode_payloads_device(payloads, dsizes, device="cuda"):
     """payloads: method 2/3/4/5 superblock payloads (a zstd frame and an
     optional sidecar each) of dsizes bytes. Returns, per payload, its
-    (dsize,) uint8 slice of one device output (out, when given: a
-    (sum(dsizes),) uint8 tensor, payload i at the sum of the dsizes before
-    it), or None when its headers are not device-decodable (counted in
-    host_ladder; the caller asks host libzstd, and its part of the output is
-    left as it was). Raises StenosError when a payload whose headers parse
-    is corrupt: the first such payload in order."""
+    (dsize,) uint8 slice of one device output, or None when its headers are
+    not device-decodable (counted in host_ladder; the caller asks host
+    libzstd). Raises StenosError when a payload whose headers parse is
+    corrupt: the first such payload in order."""
     device = torch.device(device)
     dsizes = [int(d) for d in dsizes]
     lens = [len(p) for p in payloads]
@@ -245,8 +245,7 @@ def decode_payloads_device(payloads, dsizes, device="cuda", out=None):
     buf = np.zeros(max(4, -(-sum(lens) // 4) * 4), np.uint8)
     for p, o, n in zip(payloads, offs, lens):
         buf[o : o + n] = np.frombuffer(p, np.uint8)
-    if out is None:
-        out = torch.empty(sum(dsizes), dtype=torch.uint8, device=device)
+    out = torch.empty(sum(dsizes), dtype=torch.uint8, device=device)
     with step("host_pass", device):
         prepared = prepare(buf, offs, lens, dsizes)
     ok = decode_prepared(buf, dsizes, prepared, out)

@@ -292,7 +292,8 @@ class _Native:
                         max_stream: int):
         """Host pass of the batched device zstd decode over the payloads
         buf[offs[i] : offs[i] + lens[i]] (dsizes[i] bytes each), on
-        `threads` threads. Returns (status (n,) int32: 0 ok, 1 the host
+        up to `threads` threads (one for each 8 anchor scans of foreign
+        literals). Returns (status (n,) int32: 0 ok, 1 the host
         ladder, 2 corrupt; then, over the ok payloads in order: blocks
         (nblk, 5) int64 [payload, regenerated, host literal offset, job or
         -1, section or -1], rows (4 njobs, width) uint8 (each K5 job's 4
@@ -300,19 +301,20 @@ class _Native:
         (4 njobs, 256) int32, lens (njobs, 256) uint8, K5's tables (4 njobs,
         304) int32 (decode_tables of each job's lens, a row a stream), meta
         (nsec, 8) int64 (K7's, stream offsets into buf), tabs (nsec, 1536)
-        int32 and the host literals (nlits,) uint8). buf: a uint8 array."""
+        int32, the host literals (nlits,) uint8, and the number of anchor
+        scans it ran). buf: a uint8 array."""
         offs = np.ascontiguousarray(offs, np.int64)
         lens = np.ascontiguousarray(lens, np.int64)
         dsizes = np.ascontiguousarray(dsizes, np.int64)
         n = len(offs)
         status = np.zeros(n, np.int32)
-        counts = np.zeros(5, np.int64)
+        counts = np.zeros(6, np.int64)
         h = self._lib.stn_zstd_prep_batch(_ptr(buf), _ptr(offs), _ptr(lens),
                                           _ptr(dsizes), n, threads,
                                           max_stream, _ptr(status),
                                           _ptr(counts))
         try:
-            nb, nj, ns, nl, longest = (int(c) for c in counts)
+            nb, nj, ns, nl, longest, scans = (int(c) for c in counts)
             width = max(4, -(-longest // 4) * 4)
             out = (np.empty((nb, 5), np.int64),
                    np.empty((4 * nj, width), np.uint8),
@@ -327,7 +329,7 @@ class _Native:
                                           *(_ptr(a) for a in out[2:]))
         finally:
             self._lib.stn_zstd_prep_free(h)
-        return (status, *out)
+        return (status, *out, scans)
 
     def matchiness(self, data, sample_n: int = 16384) -> float:
         """Duplicate-4-gram fraction of the block's first sample_n

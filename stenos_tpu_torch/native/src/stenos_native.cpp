@@ -10,6 +10,7 @@
 // All calls are GIL-free (ctypes releases the GIL), so the Python runtime can
 // fan superblocks out over a thread pool.
 
+#include <algorithm>
 #include <atomic>
 #include <cmath>
 #include <cstdint>
@@ -3214,6 +3215,10 @@ struct PrepSec {
 
 struct PrepPayload {
     int status = PREP_OK;
+    // the headers (prep_headers), used and dropped by prep_body
+    bool have = false;
+    std::vector<PrepEntry> entries;
+    std::vector<PrepSpec> specs;
     // per block: regenerated, host literal bytes before it in lits, job
     // index or -1, section index or -1 (indexes into jobs / secs)
     std::vector<int64_t> blocks;
@@ -3270,8 +3275,13 @@ size_t prep_split_sidecar(const uint8_t* pl, size_t n, bool* have,
     *have = false;
     if (n < 9) return n;
     auto rfind = [&](ptrdiff_t hi) -> ptrdiff_t {  // highest i <= hi
-        for (ptrdiff_t i = hi; i >= 0; --i)
+        while (hi >= 0) {  // memrchr for the magic's first byte, 0x5C
+            const void* q = memrchr(pl, kSidecarMagic & 0xFF, (size_t)hi + 1);
+            if (!q) return -1;
+            const ptrdiff_t i = (const uint8_t*)q - pl;
             if (read32(pl + i) == kSidecarMagic) return i;
+            hi = i - 1;
+        }
         return -1;
     };
     ptrdiff_t pos = rfind((ptrdiff_t)n - 4);
@@ -3458,18 +3468,36 @@ void prep_k5_table(const uint8_t* lens, int32_t* out) {
         }
 }
 
-int prep_payload(const uint8_t* pl, size_t n, int64_t dsize,
-                 int64_t max_stream, uint8_t* ctx, PrepPayload* out) {
-    bool have = false;
-    std::vector<PrepEntry> entries;
-    const size_t frame_end = prep_split_sidecar(pl, n, &have, &entries);
+inline bool prep_huf4(const PrepLit& lit) {
+    return lit.kind == 2 && lit.four && !lit.treeless && lit.regen >= 64;
+}
+
+// The first step: the sidecar and the frame's headers into out. Returns
+// the payload's status; adds to *scans the anchor scans (stn_huf_anchors)
+// that prep_body will run, the pass's costly part.
+int prep_headers(const uint8_t* pl, size_t n, int64_t dsize,
+                 PrepPayload* out, size_t* scans) {
+    const size_t frame_end = prep_split_sidecar(pl, n, &out->have,
+                                                &out->entries);
     bool has_content = false;
     uint64_t content = 0;
-    std::vector<PrepSpec> blocks;
-    if (!prep_frame(pl, frame_end, &has_content, &content, &blocks))
+    if (!prep_frame(pl, frame_end, &has_content, &content, &out->specs))
         return PREP_LADDER;
     if (has_content && content != (uint64_t)dsize) return PREP_LADDER;
-    if (have && entries.size() != blocks.size()) have = false;
+    if (out->have && out->entries.size() != out->specs.size())
+        out->have = false;
+    for (size_t bi = 0; bi < out->specs.size(); ++bi)
+        *scans += out->specs[bi].btype == 2 && prep_huf4(out->specs[bi].lit)
+                  && !(out->have && out->entries[bi].present);
+    return PREP_OK;
+}
+
+// The second step: per block, its literals and its sequences section.
+int prep_body(const uint8_t* pl, int64_t max_stream, uint8_t* ctx,
+              PrepPayload* out) {
+    const bool have = out->have;
+    const std::vector<PrepEntry>& entries = out->entries;
+    const std::vector<PrepSpec>& blocks = out->specs;
     std::memset(ctx, 0, sizeof(ZstdDecCtx));
     for (size_t bi = 0; bi < blocks.size(); ++bi) {
         const PrepSpec& s = blocks[bi];
@@ -3487,8 +3515,7 @@ int prep_payload(const uint8_t* pl, size_t n, int64_t dsize,
         }
         const PrepLit& lit = s.lit;
         if (lit.regen > kPrepBlockMax) return PREP_LADDER;
-        const bool huf4 = lit.kind == 2 && lit.four && !lit.treeless
-                          && lit.regen >= 64;
+        const bool huf4 = prep_huf4(lit);
         PrepJob job;
         bool ent = false;
         if (huf4 && have && entries[bi].present) {
@@ -3555,31 +3582,47 @@ int prep_payload(const uint8_t* pl, size_t n, int64_t dsize,
 }  // namespace
 
 // The host pass over n payloads, payload i at buf[offs[i], offs[i] +
-// lens[i]) of dsizes[i] bytes, on `threads` threads. status[i] gets each
+// lens[i]) of dsizes[i] bytes: the headers on the calling thread, then the
+// rest on up to `threads` threads, one for each kScansPerThread anchor
+// scans (a frame with a sidecar needs none, and then the pass runs on one
+// thread: more would cost more than its work). status[i] gets each
 // payload's status; counts gets [blocks, jobs, sections, host literal
-// bytes, longest job stream] over the payloads whose status is 0. Returns
-// a handle for stn_zstd_prep_fetch (then stn_zstd_prep_free).
+// bytes, longest job stream, anchor scans] over the payloads whose status
+// is 0 (the scans over all). Returns a handle for stn_zstd_prep_fetch
+// (then stn_zstd_prep_free).
+constexpr size_t kScansPerThread = 8;
+
 EXPORT void* stn_zstd_prep_batch(const uint8_t* buf, const int64_t* offs,
                                  const int64_t* lens, const int64_t* dsizes,
                                  size_t n, int threads, int64_t max_stream,
                                  int32_t* status, int64_t* counts) {
     PrepBatch* h = new PrepBatch;
     h->p.resize(n);
+    size_t scans = 0;
+    for (size_t i = 0; i < n; ++i)
+        h->p[i].status = prep_headers(buf + offs[i], (size_t)lens[i],
+                                      dsizes[i], &h->p[i], &scans);
     std::atomic<size_t> next(0);
     auto work = [&]() {
         std::vector<uint8_t> ctx(sizeof(ZstdDecCtx));
         for (size_t i; (i = next.fetch_add(1)) < n;) {
             PrepPayload& pp = h->p[i];
-            pp.status = prep_payload(buf + offs[i], (size_t)lens[i],
-                                     dsizes[i], max_stream, ctx.data(), &pp);
+            if (pp.status == PREP_OK)
+                pp.status = prep_body(buf + offs[i], max_stream, ctx.data(),
+                                      &pp);
+            pp.entries = {};
+            pp.specs = {};
         }
     };
-    const int t = threads < 1 ? 1 : (size_t)threads > n ? (int)n : threads;
+    const size_t t = std::max<size_t>(
+        1, std::min({(scans + kScansPerThread - 1) / kScansPerThread,
+                     (size_t)std::max(threads, 1), n}));
     std::vector<std::thread> pool;
-    for (int k = 1; k < t; ++k) pool.emplace_back(work);
+    for (size_t k = 1; k < t; ++k) pool.emplace_back(work);
     work();
     for (auto& th : pool) th.join();
     for (int k = 0; k < 5; ++k) counts[k] = 0;
+    counts[5] = (int64_t)scans;
     for (size_t i = 0; i < n; ++i) {
         const PrepPayload& pp = h->p[i];
         status[i] = pp.status;

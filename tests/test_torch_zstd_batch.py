@@ -18,6 +18,7 @@ import torch
 import zstandard
 
 from stenos_tpu.entropy import device_decode as ref_decode
+from stenos_tpu.entropy import huff_decode_pallas
 from stenos_tpu.entropy import seq_exec as ref_exec
 from stenos_tpu.native import lib as ref_lib
 from stenos_tpu_torch import frame, native
@@ -37,6 +38,7 @@ from stenos_tpu_torch.ops.delta import delta_np
 from stenos_tpu_torch.ops.shuffle import shuffle_np
 
 BLOCK = 131072
+JAX_ROW_BYTES = 32768  # the JAX decode's stream rows, padded (jax_decoded)
 TEXT = open(os.path.join(os.path.dirname(__file__), "..", "benchs", "data",
                          "code_text.txt"), "rb").read()
 lib = native.load()
@@ -87,15 +89,39 @@ def batch(payloads):
     return got
 
 
+@pytest.fixture(scope="module")
+def jax_decoded(payloads):
+    """stenos_tpu's decode_payload_device(interpret=True) of each payload,
+    its Huffman stream rows zero-padded to one width, 32 KiB (stenos_tpu
+    pads them to the longest stream, rounded to 128 B), so that the
+    interpret-mode Pallas decode is traced and lowered once for the four
+    payloads, not once per width."""
+    real = huff_decode_pallas.decode_streams_device
+
+    def padded(stream_bytes, anchors, tables, interpret=False, v=None):
+        import jax.numpy as jnp
+
+        pad = JAX_ROW_BYTES - stream_bytes.shape[1]
+        assert pad >= 0
+        stream_bytes = jnp.concatenate(
+            [stream_bytes, jnp.zeros((stream_bytes.shape[0], pad),
+                                     stream_bytes.dtype)], axis=1)
+        return real(stream_bytes, anchors, tables, interpret, v)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(huff_decode_pallas, "decode_streams_device", padded)
+        return [np.asarray(ref_decode.decode_payload_device(
+            p, len(d), interpret=True)) for _, p, d in payloads]
+
+
 @pytest.mark.parametrize("i", range(4))
-def test_decode_payloads_device_matches_jax(payloads, batch, i):
-    name, payload, data = payloads[i]
+def test_decode_payloads_device_matches_jax(payloads, batch, jax_decoded,
+                                            i):
+    name, _, data = payloads[i]
     got = batch[i]
     assert got is not None and got.dtype == torch.uint8, name
     assert np.array_equal(got.numpy(), data), name
-    want = ref_decode.decode_payload_device(payload, len(data),
-                                            interpret=True)
-    assert np.array_equal(np.asarray(want), got.numpy()), name
+    assert np.array_equal(jax_decoded[i], got.numpy()), name
 
 
 def test_native_host_pass_k5_tables_equal_decode_tables(payloads):
@@ -261,7 +287,8 @@ def test_seq_exec_plain_lanes_match_programs(monkeypatch):
 
 
 # ------------------------------------------------------- frame layer
-def _mixed_frame():
+@pytest.fixture(scope="module")
+def mixed_frame():
     """(data, frame, record sizes) of 4-byte elements in 8 KiB superblocks
     (a custom superblock size keeps the plain walks short) that are, in
     order, METHOD_BLOCK, METHOD_ZSTD (libzstd), TRANSPOSED_ZSTD,
@@ -309,11 +336,11 @@ def _error_code(fn):
     return None
 
 
-def test_frame_decompress_mixed_methods_in_one_batch():
+def test_frame_decompress_mixed_methods_in_one_batch(mixed_frame):
     """The frame layer sends the four zstd superblocks to one batch of the
     device decode (one host pass, one decode_prepared; the METHOD_BLOCK one
     decodes on its own) and gives the input back, as the host path does."""
-    data, f, _ = _mixed_frame()
+    data, f, _ = mixed_frame
     calls = []
     real = device_decode.decode_prepared
 
@@ -330,11 +357,11 @@ def test_frame_decompress_mixed_methods_in_one_batch():
 
 
 @pytest.mark.parametrize("case", ["corrupt", "cut", "corrupt_then_cut"])
-def test_frame_decompress_errors_match_host_path(case):
+def test_frame_decompress_errors_match_host_path(mixed_frame, case):
     """A corrupt zstd payload (its last sequences bitstream), a frame cut
     inside a later superblock header, and both: the engine route raises the
     host path's error, the earlier superblock's first."""
-    _, f, sizes = _mixed_frame()
+    _, f, sizes = mixed_frame
     ends = np.cumsum(sizes)
     f = bytearray(f)
     if case != "cut":
