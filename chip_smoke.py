@@ -1236,27 +1236,15 @@ def phase_zstd(dev):
         "staged_lanes": int(a1[7][:, 2].sum()), "sequences": a1[3].numel()}
     # X1's literal pass alone: the same call with every match length and
     # offset 0 and each block as long as its literals (the match pass then
-    # copies nothing); and the byte-copy literal pass, on the same inputs,
-    # its output held against the kernel's
+    # copies nothing)
     x1z = fresh(a1)
     x1z[4].zero_()
     x1z[5].zero_()
     x1z[6][:, 1] = x1z[6][:, 3]
     seq_exec.execute_plain(*fresh(x1z))  # a valid call: the plain one takes it
-    t1 = times["seq_exec"]
-    t1["literal_pass_ms"] = cuda_ms(lambda: seq_exec.execute(*x1z), 10)
-    got = seq_exec.execute(*fresh(a1))
-    seq_exec.BYTE_LITS = 1
-    try:
-        err["seq_exec"] = max(err["seq_exec"], zstd_exact(
-            "X1, byte-copy literals", (seq_exec.execute(*fresh(a1)),),
-            (got,)))
-        t1["ms_byte_literals"] = cuda_ms(lambda: seq_exec.execute(*x1), 10)
-        t1["literal_pass_ms_byte_literals"] = cuda_ms(
-            lambda: seq_exec.execute(*x1z), 10)
-    finally:
-        seq_exec.BYTE_LITS = 0
-    del got, x1z
+    times["seq_exec"]["literal_pass_ms"] = cuda_ms(
+        lambda: seq_exec.execute(*x1z), 10)
+    del x1z
     check(not any(err.values()), f"zstd kernels differ: {err}")
     for name, t in times.items():
         t["bound_ms"] = t["bytes"] / HBM_BYTES_PER_S * 1e3

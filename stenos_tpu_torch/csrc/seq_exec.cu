@@ -37,8 +37,10 @@
 // Bound: bytes (literals and sequences in, the output written once). The
 // real limit is the match pass's serial chain: a dependent shared-memory
 // copy and a warp barrier for each match that reads the tile's own output.
-// One CTA with 128 KiB staged fits an SM, so a chunk of 512 blocks runs in
-// about 4 waves.
+// On an H100 80GB HBM3 at 700 W, the literal pass is ~0.40 ms of the
+// ~3.0 ms a 64 MiB text chunk takes (chip_smoke.py, literal_pass_ms); the
+// rest is the match pass. One CTA with 128 KiB staged fits an SM, so a
+// chunk of 512 blocks runs in about 4 waves.
 
 #include <cstdint>
 
@@ -146,52 +148,12 @@ __device__ void scan2(int& a, int& b, int& ta, int& tb, int* s_a, int* s_b) {
     __syncthreads();
 }
 
-// Literals [t0, t0 + n) of a block to dst, by one thread. row < 0: the
-// literals are lit[0, lit_len); else rows row .. row + 3, s1 a row.
-__device__ void copy_lits(uint8_t* dst, const uint8_t* lit,
-                          const uint8_t* rows, long long row, int s1, int t0,
-                          int n) {
-    if (row < 0) {
-        for (int j = 0; j < n; ++j) dst[j] = lit[t0 + j];
-        return;
-    }
-    int r = t0 / s1, c = t0 - r * s1;
-    const uint8_t* s = rows + (row + r) * kRowBytes + c;
-    for (int j = 0; j < n; ++j) {
-        if (c == s1) {
-            c = 0;
-            s = rows + (row + ++r) * kRowBytes;
-        }
-        dst[j] = *s++;
-        ++c;
-    }
-}
-
-// The same, by the whole CTA in coalesced byte copies (one row at a time).
-__device__ void copy_lits_cta(uint8_t* dst, const uint8_t* lit,
-                              const uint8_t* rows, long long row, int s1,
-                              int t0, int n) {
-    if (row < 0) {
-        for (int j = threadIdx.x; j < n; j += kThreads) dst[j] = lit[t0 + j];
-        return;
-    }
-    int t = t0;
-    while (t < t0 + n) {
-        const int r = t / s1, c = t - r * s1;
-        const int len = min(s1 - c, t0 + n - t);
-        const uint8_t* s = rows + (row + r) * kRowBytes + c;
-        uint8_t* d = dst + (t - t0);
-        for (int j = threadIdx.x; j < len; j += kThreads) d[j] = s[j];
-        t += len;
-    }
-}
-
 __global__ void __launch_bounds__(kThreads)
 seq_exec(uint8_t* out, const uint8_t* __restrict__ lits,
          const uint8_t* __restrict__ rows, const int* __restrict__ ll,
          const int* __restrict__ ml, const int* __restrict__ off,
          const long long* __restrict__ blocks,
-         const long long* __restrict__ lanes, int byte_lits) {
+         const long long* __restrict__ lanes) {
     extern __shared__ uint4 s_dyn[];
     __shared__ int s_a[kWarps + 1], s_b[kWarps + 1];
     __shared__ int s_lp[kTile + 1], s_dp[kTile];
@@ -215,21 +177,6 @@ seq_exec(uint8_t* out, const uint8_t* __restrict__ lits,
         // reads the tile's literals in 16-byte words and each byte finds
         // its sequence by a binary search of s_lp (then steps on)
         int c_ll = 0, c_pos = 0;  // sums over the tiles before
-        if (byte_lits) {  // the byte-copy route, kept for one timed comparison
-        for (int g = 0; g < nseq; g += kThreads) {
-            const int i = g + t;
-            int l = i < nseq ? ll[seq0 + i] : 0;
-            int p = i < nseq ? l + ml[seq0 + i] : 0;
-            const int mine = l;
-            int tl, tp;
-            scan2(l, p, tl, tp, s_a, s_b);
-            if (mine)
-                copy_lits(o + c_pos + p, lit, rows, row, s1, c_ll + l, mine);
-            c_ll += tl;
-            c_pos += tp;
-        }
-        copy_lits_cta(o + c_pos, lit, rows, row, s1, c_ll, lit_len - c_ll);
-        } else {
         for (int g = 0; g < nseq; g += kTile) {
             int l[kSeqs], p[kSeqs], a = 0, q = 0;
 #pragma unroll
@@ -272,7 +219,6 @@ seq_exec(uint8_t* out, const uint8_t* __restrict__ lits,
             for (int k = k0; k < k1; ++k)
                 o[c_pos + xb + k - c_ll] = (uint8_t)word_byte(v, k);
         });
-        }
         __syncthreads();
 
         // (b) matches, by warp 0, a tile of 32 sequences at a time: the
@@ -367,7 +313,7 @@ extern "C" int stenos_seq_exec(void* out, const void* lits, const void* rows,
                                const void* ll, const void* ml, const void* off,
                                const void* blocks, const void* lanes,
                                long long nlanes, long long staged_bytes,
-                               int byte_lits, void* stream) {
+                               void* stream) {
     if (staged_bytes > kMaxStaged) return (int)cudaErrorInvalidValue;
     const int shared = (int)((staged_bytes + 15) & ~15LL);
     cudaError_t err = cudaFuncSetAttribute(
@@ -376,7 +322,7 @@ extern "C" int stenos_seq_exec(void* out, const void* lits, const void* rows,
     seq_exec<<<(unsigned)nlanes, kThreads, shared, (cudaStream_t)stream>>>(
         (uint8_t*)out, (const uint8_t*)lits, (const uint8_t*)rows,
         (const int*)ll, (const int*)ml, (const int*)off,
-        (const long long*)blocks, (const long long*)lanes, byte_lits);
+        (const long long*)blocks, (const long long*)lanes);
     return (int)cudaGetLastError();
 }
 #endif

@@ -45,14 +45,11 @@ ROW_BYTES = 32768
 
 # kernel launches (chip_smoke.py reads this)
 launches = 0
-# 1: the byte-copy literal pass (a thread copies its sequence's literals
-# byte by byte), kept for one timed comparison in chip_smoke.py
-BYTE_LITS = 0
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _SIGNATURES = {"stenos_seq_exec": [_P, _P, _P, _P, _P, _P, _P, _P, _LL,
-                                   _LL, ctypes.c_int, _P]}
+                                   _LL, _P]}
 
 
 def _programs(ll, ml, off, blocks, lanes, lit_base):
@@ -162,7 +159,7 @@ def execute(out, lits, rows, ll, ml, off, blocks, lanes):
         _cuda.check(lib.stenos_seq_exec(
             out.data_ptr(), lits.data_ptr(), rows.data_ptr(), ll.data_ptr(),
             ml.data_ptr(), off.data_ptr(), blocks.data_ptr(),
-            lanes.data_ptr(), nl, staged_bytes, BYTE_LITS,
+            lanes.data_ptr(), nl, staged_bytes,
             torch.cuda.current_stream(dev).cuda_stream), "seq_exec")
         launches += 1
     return out
