@@ -43,6 +43,7 @@ from stenos_tpu_torch import frame as fr
 from stenos_tpu_torch import native
 from stenos_tpu_torch.host import zstd as zstd_host
 from stenos_tpu_torch.device_container import record_blocks
+from stenos_tpu_torch.encode_timing import cuda_ms, sorted_int32
 from stenos_tpu_torch.engine import (CHUNK_BYTES, compress_frame_device,
                                      frame_header_bytes, roundtrip_device)
 from stenos_tpu_torch.entropy import (device_decode, fse_kernel,
@@ -57,12 +58,23 @@ from stenos_tpu_torch.ops import _cuda, decode_kernel, encode_kernel
 from stenos_tpu_torch.ops.encode_kernel import record_bound
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+# integer instructions a second: 132 SMs x 4 issue slots x 32 lanes x the
+# 1.98 GHz boost clock (H100 SXM data sheet)
+INT_OPS_PER_S = 132 * 4 * 32 * 1.98e9
+# integer instructions an input byte that the encode cannot do without: the
+# per-element body of analyse() in csrc/encode_blocks.cu (load, sign
+# extensions, delta, two repeat-mask bits, the two running min/max pairs);
+# plane decisions and emission come on top
+ENCODE_OPS_PER_BYTE = 11
 MIB = 1024 * 1024
 HEADLINE_MB = 512  # bench.py's headline size
 TEXT_MB = 512  # the text cell: 4096 superblocks of 128 KiB
 TEXT_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "benchs",
                          "data", "code_text.txt")
 KINDS = ("sorted", "random", "same", "rle", "smallrange")
+# bpp of the small grid: the encode's tiling changes at 5, 16, 17, 32 and 64
+# (blocks a tile, plane groups above 64)
+GRID_BPP = (1, 2, 3, 4, 5, 8, 16, 17, 24, 32, 64, 300)
 
 
 def gen_elements(rng, bpp, nelem, kind):
@@ -95,13 +107,6 @@ def low_card(rng, n):
                       p=p / p.sum())
 
 
-def sorted_int32(nbytes, seed=42):
-    """bench.py's headline data: sorted uint32 values below 2**30."""
-    rng = np.random.default_rng(seed)
-    a = np.sort(rng.integers(0, 1 << 30, nbytes // 4, dtype=np.int64))
-    return a.astype(np.uint32).view(np.uint8)
-
-
 def log(msg):
     print(msg, flush=True)
 
@@ -112,18 +117,14 @@ def check(ok, what):
         raise RuntimeError(f"chip_smoke check failed: {what}")
 
 
-def cuda_ms(fn, reps):
-    """Mean device time of fn() over reps calls, by CUDA events, warm."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+def encode_bound(in_bytes, moved):
+    """The encode's bound: the larger of its bytes over the memory rate and
+    its integer instructions over the issue rate."""
+    b_ms = moved / HBM_BYTES_PER_S * 1e3
+    o_ms = ENCODE_OPS_PER_BYTE * in_bytes / INT_OPS_PER_S * 1e3
+    return {"bound_ms": max(b_ms, o_ms),
+            "bound_by": "bytes" if b_ms >= o_ms else "operations",
+            "bytes": moved, "bytes_ms": b_ms, "ops_ms": o_ms}
 
 
 def encode_err(k, p):
@@ -137,6 +138,13 @@ def encode_err(k, p):
     valid = torch.arange(w, device=k[1].device) < k[1][:, None]
     d = (k[0][:, :w].int() - p[0][:, :w].int()).abs()[valid]
     return int(d.max()) if d.numel() else 0
+
+
+def zeros_past(rows, totals):
+    """Every byte of each row past its totals is zero."""
+    past = (torch.arange(rows.shape[1], device=rows.device)
+            >= totals[:, None])
+    return not rows[past].any()
 
 
 def decode_err(k, p):
@@ -231,15 +239,17 @@ def phase_kernels(dev):
 
     n = 0
     for bpp, n_sb, kind in itertools.product(
-            (1, 2, 3, 4, 8, 16, 24, 300), (3, 1), KINDS):
+            GRID_BPP, (3, 1), KINDS):
         sb = fr.super_block_size(256 * bpp)
         nb = sb // (256 * bpp)
         raw = gen_elements(rng, bpp, n_sb * sb // bpp, kind)
         x = torch.from_numpy(raw.copy()).to(dev).view(n_sb, sb)
-        for level in (1, 2):
+        for level in (0, 1, 2):
             k = encode_kernel.encode_superblocks(x, bpp, level)
             p = encode_kernel.encode_superblocks_plain(x, bpp, level)
             record("encode_blocks", encode_err(k, p), (bpp, kind, level))
+            check(zeros_past(k[0], k[1]), ("streams padding", bpp, kind,
+                                           level))
             hdr = frame_header_bytes(n_sb * sb, sb, bpp, 1)
             k = encode_kernel.encode_superblocks_frame(x, bpp, level, hdr)
             p = encode_kernel.encode_superblocks_frame_plain(x, bpp, level,
@@ -248,16 +258,22 @@ def phase_kernels(dev):
             record("encode_blocks", decode_err(k[0], p[0]),
                    (bpp, kind, level, "frame"))
 
-            k = encode_kernel.encode_superblocks_index(x, bpp, level)
             p = encode_kernel.encode_superblocks_index_plain(x, bpp, level)
-            record("encode_blocks_index", encode_err(k, p),
-                   (bpp, kind, level))
+            for width in (None, record_bound(nb, bpp)):
+                k = encode_kernel.encode_superblocks_index(x, bpp, level,
+                                                           width)
+                record("encode_blocks_index", encode_err(k, p),
+                       (bpp, kind, level, width))
+                check(zeros_past(k[0], k[1]), ("index rows padding", bpp,
+                                               kind, level, width))
             out = decode_kernel.decode_rows_derive(k[0], k[4], bpp, nb, "jb")
             record("decode_rows_derive", decode_err(
                 out, decode_kernel.decode_rows_derive_plain(
                     k[0], k[4], bpp, nb, "jb")), (bpp, kind, level, "jb"))
             check(torch.equal(out.view(n_sb, sb), x),
                   ("derive jb round trip", bpp, kind, level))
+            if level == 0:  # no frame level encodes at block level 0
+                continue
 
             frame = fr.compress(raw, bpp, level, engine=None)
             sbs, streams = block_streams(frame, bpp)
@@ -287,10 +303,12 @@ def phase_kernels(dev):
                                                        "bj")),
                 (bpp, kind, level, "corrupt index"))
             n += 1
-    log(f"kernels == plain versions on the card: {n} cases over bpp "
-        "1,2,3,4,8,16,24,300 x 3 and 1 superblocks x 5 kinds x levels 1,2; "
-        "encode_blocks as streams and as a frame, decode_rows_derive in 'jb' "
-        "and 'bj' order")
+    log(f"kernels == plain versions on the card: {n} decode cases over bpp "
+        f"{GRID_BPP} x 3 and 1 superblocks x 5 kinds x levels 1,2; the "
+        "encodes also at block level 0: encode_blocks as streams and as a "
+        "frame, encode_blocks_index at the longest record's width and at "
+        "record_bound (zeros past every stream and record), "
+        "decode_rows_derive in 'jb' and 'bj' order")
     huff_grid(rng, dev, record)
     log(f"max abs err on the card: {err}")
     return err
@@ -428,11 +446,11 @@ def phase_timing(dev, raw, frame1, frame2):
     check(err["encode_blocks"] == 0, "encode at the main path's shape")
     k_ms = cuda_ms(lambda: encode_kernel.encode_superblocks(x, 4, 2), 10)
     p_ms = cuda_ms(lambda: encode_kernel.encode_superblocks_plain(x, 4, 2), 2)
-    moved = (x.numel() + int(enc[1].sum()) + 4 * (enc[2].numel()
-                                                  + enc[3].numel() + per_call))
+    # the input, the (n_sb, W) streams it returns, the sizes
+    moved = (x.numel() + enc[0].numel() + 4 * (enc[2].numel()
+                                               + enc[3].numel() + per_call))
     out["encode_blocks"] = {"ms": k_ms, "plain_ms": p_ms,
-                            "bound_ms": moved / HBM_BYTES_PER_S * 1e3,
-                            "bytes": moved}
+                            **encode_bound(x.numel(), moved)}
     h2d = cuda_ms(lambda: host.to(dev), 5)
     d2h = cuda_ms(lambda: enc[0].cpu(), 5)
     out["encode_blocks"].update(h2d_ms=h2d, d2h_ms=d2h,
@@ -456,6 +474,7 @@ def phase_timing(dev, raw, frame1, frame2):
             decode_kernel.decode_rows(*one, 4, nb),
             decode_kernel.decode_rows_plain(*one, 4, nb)))
     check(err["decode_rows"] == 0, "decode at the main path's shapes")
+    one_ms = cuda_ms(lambda: decode_kernel.decode_rows(*one, 4, nb), 20)
     k_ms = cuda_ms(lambda: decode_kernel.decode_rows(*args, 4, nb), 10)
     p_ms = cuda_ms(lambda: decode_kernel.decode_rows_plain(*args, 4, nb), 2)
     moved = (int(vlens.sum()) + po.nbytes + rt.nbytes + len(streams) * sbs)
@@ -466,6 +485,7 @@ def phase_timing(dev, raw, frame1, frame2):
     out["decode_rows"] = {"ms": k_ms, "plain_ms": p_ms,
                           "bound_ms": moved / HBM_BYTES_PER_S * 1e3,
                           "bytes": moved, "parse_ms": parse_s * 1e3,
+                          "one_superblock_ms": one_ms,
                           "h2d_ms": h2d, "d2h_ms": d2h}
     for name, t in out.items():
         log(f"{name} at {len(chunk) // MIB} MiB: " + ", ".join(
@@ -526,15 +546,19 @@ def phase_device(dev, raw, frame1):
     err["encode_blocks_index"] = encode_err(k, plain)
     check(err["encode_blocks_index"] == 0, "K1b at the round trip's shape")
     rec_bytes = int(totals.sum())
-    moved = (x.numel() + rec_bytes + k[4].numel() * 4
-             + 4 * (k[2].numel() + k[3].numel() + n_sb))
+    # the input, the whole rows (records and the zeros after them), the
+    # index, the sizes; records_bytes_ms counts the records alone
+    sizes = k[4].numel() * 4 + 4 * (k[2].numel() + k[3].numel() + n_sb)
+    moved = x.numel() + k[0].numel() + sizes
     times["encode_blocks_index"] = {
         "ms": cuda_ms(lambda: encode_kernel.encode_superblocks_index(
             x, 4, 2, width), 3),
         "plain_ms": cuda_ms(lambda: in_chunks(
             encode_kernel.encode_superblocks_index_plain, (x,), 4, 2, width),
             1),
-        "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bytes": moved}
+        **encode_bound(x.numel(), moved),
+        "records_bytes_ms": (x.numel() + rec_bytes + sizes)
+        / HBM_BYTES_PER_S * 1e3}
     dec = decode_kernel.decode_rows_derive(k[0], k[4], 4, nb, "jb")
     err["decode_rows_derive"] = decode_err(dec, in_chunks(
         decode_kernel.decode_rows_derive_plain, (k[0], k[4]), 4, nb, "jb"))
@@ -628,13 +652,25 @@ def phase_device(dev, raw, frame1):
           "version's records")
     del frame, plain, keep, want
     warm_ms = cuda_ms(lambda: compress_frame_device(x, 4, 1), 3)
+    # its two launches apart: the records into rows, then place_records
+    rb = record_bound(nb, 4)
+    rows_t, tot_t = encode_kernel._encode_rows(x, 4, 2, rb, 4, False,
+                                               False)[:2]
+    launch_ms = [
+        cuda_ms(lambda: encode_kernel._encode_rows(x, 4, 2, rb, 4, False,
+                                                   False), 3),
+        cuda_ms(lambda: encode_kernel._place_records(
+            rows_t, tot_t, frame_header_bytes(len(raw), sb, 4, 1), nb, 4),
+            3)]
+    del rows_t, tot_t
     res["frame_compress"] = {"s": fc_s, "gbps": len(raw) / fc_s / 1e9,
                              "warm_ms": warm_ms,
                              "warm_gbps": len(raw) / warm_ms / 1e6,
-                             "bytes": len(got)}
+                             "launch_ms": launch_ms, "bytes": len(got)}
     log(f"compress_frame_device {HEADLINE_MB} MiB level 1: first call "
         f"{fc_s:.4f} s = {res['frame_compress']['gbps']:.4f} GB/s, warm "
-        f"{warm_ms:.4f} ms = {res['frame_compress']['warm_gbps']:.4f} GB/s; "
+        f"{warm_ms:.4f} ms = {res['frame_compress']['warm_gbps']:.4f} GB/s "
+        f"(encode {launch_ms[0]:.4f} + place_records {launch_ms[1]:.4f} ms); "
         "frame == the host-path frame and the plain version's records, "
         f"decodes to the input; launches {res['launches']['frame_compress']}")
     for name, t in times.items():
@@ -1337,7 +1373,8 @@ def main():
         "launches_by_path": {k: v[name] for k, v in paths.items()},
         "max_abs_err": max(err[name], err_small[name]),
         "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"],
-        "bound_ms": times[name]["bound_ms"], "bound_by": "bytes",
+        "bound_ms": times[name]["bound_ms"],
+        "bound_by": times[name].get("bound_by", "bytes"),
         "library_ms": times[name].get("library_ms"),
     } for name, (src, rep, main_path, paths) in replaces.items()]
     for k in kernels:

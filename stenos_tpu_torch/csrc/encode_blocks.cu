@@ -9,30 +9,49 @@
 // bytes), pick row headers, plane codes (ALL_SAME, ALL_RAW, NORMAL,
 // NORMAL_RLE) and emit the ragged block stream.
 //
-// Two launches:
-//   encode_planes    one CTA per (block, group of 16 planes), one thread per
-//                    row. The plane's bytes are staged in shared memory; each
-//                    row thread analyzes and emits its own row; the plane's
-//                    payload (<= 256 bytes: a NORMAL plane larger than the
-//                    ALL_RAW target is demoted to 256 raw bytes) goes to a
-//                    fixed 256-byte slot, with its size and code.
-//   assemble_blocks  one CTA per block: the block header nibbles, an
-//                    exclusive scan of the plane sizes in shared memory, and
-//                    the copy of each plane slot to its place in the
-//                    superblock's stream. Block offsets come from a scan of
-//                    the block sizes on the host side of the wrapper. With
-//                    record bases given, the first block of each superblock
-//                    also writes the 4-byte record header there: records go
-//                    to rows of a fixed width (index mode) or back to back
-//                    behind a frame header (device frame compress). In index
-//                    mode the same scan gives each plane's offset in the
-//                    record: the decode index costs one store a plane.
+// encode_superblocks: one 256-thread CTA per superblock, one pass over it.
+//   The CTA walks its blocks in tiles and carries the running stream
+//   offset, so no block offset needs a scan outside the kernel; it writes
+//   the stream (or the record [1, csize u24, stream]) into its output row,
+//   the zeros after it up to the row's end, totals, bsizes, fsizes and, in
+//   index mode, each plane's record offset | code << 24 ('jb' order).
+//   - Threads map to (plane, row): the 16 lanes of a half-warp are the 16
+//     rows of one plane, so a step analyses 16 planes taken in order across
+//     the tile's blocks (16/bpp blocks a step at bpp 4; at any bpp the last
+//     step of a tile is the only one that may be ragged, and the host's
+//     launch plan picks the tile that keeps it fullest).
+//   - A tile of whole blocks (up to 16 KiB) is copied in with 16-byte
+//     cp.async, double-buffered so the next tile loads while this one is
+//     analysed, into an element-major layout where a row of 16 elements
+//     spans an odd count of 16-byte words (16 bytes of padding at even
+//     bpp), so a plane's 16 row starts fall on 8 banks, two a bank. A
+//     block wider than 16 KiB goes by groups of 16 planes, gathered a
+//     thread an element.
+//   - Plane decisions are warp primitives: shuffle sums (plane size),
+//     ballots (ALL_SAME, eligible rows, the mins repeat mask, 8-bit rows),
+//     a 16-lane shuffle scan for each row's offset; a plane's start in the
+//     tile is a 16-slot scan, and each lane writes its own header nibble,
+//     min byte and row.
+//   - Each tile's output is built in shared memory at the phase of its
+//     place in device memory and stored as one span: 16-byte stores, bytes
+//     at the ragged ends. No per-plane slot buffer goes to device memory.
+// place_records (frame mode only): one CTA per record copies it from its
+//   row to its place behind the frame header (its base is the sum of the
+//   records before it), zero-fills its share of the frame's tail, and CTA 0
+//   writes the header and the frame length. A record's base is known only
+//   once every earlier superblock is encoded; a second launch costs the
+//   records' bytes twice (~118 MB at 512 MiB of sorted int32) where one
+//   launch would have to hold each whole record (up to ~128 KiB) on chip
+//   while it waits for the superblocks before it.
 //
-// Bound: bytes. The work per input byte is a few dozen integer operations;
-// the function must read the input once and write the compressed streams
-// once. The TPU kernel's log-shift compaction, one-hot gathers, LE32 word
-// views and slab-size gates are gone: shared memory and plain byte stores do
-// those jobs here, for any number of blocks and any bytes-per-element.
+// Bound: instruction issue and latency, not bytes. The row analysis alone is
+// ~11 integer instructions an input byte (plane decisions and emission come
+// on top), against 3.35 TB/s for the bytes: the input once, the output rows
+// once (their zeros included). The design gives every lane of a step work,
+// holds a thread to 64 registers so that 4 CTAs (32 warps) share an SM and
+// hide one another's shuffle, shared-memory and barrier latency, overlaps
+// each tile's load with the previous tile's analysis, and writes every
+// output byte once, coalesced.
 
 #include <cstdint>
 
@@ -42,255 +61,512 @@
 
 namespace {
 
-constexpr int kThreads = 256;   // 16 planes x 16 rows
-constexpr int kGroup = 16;      // planes per CTA in encode_planes
-constexpr int kSlot = 256;      // bytes per plane slot
+constexpr int kThreads = 256;   // 16 plane slots x 16 rows
+constexpr int kMaxTile = 64;    // blocks a tile, at most
+constexpr unsigned kFull = 0xffffffffu;
 
 // bit length of v (0..255) with 7 bumped to 8 (block_compress.h:334-352)
 __device__ __forceinline__ int width_of(int v) {
-    int w = 0;
-    while (v >> w) ++w;
+    const int w = 32 - __clz(v);
     return w == 7 ? 8 : w;
 }
 
-__device__ __forceinline__ int as_int8(int v) { return ((v + 128) & 255) - 128; }
+// n / d for n * d < 2^32 by a multiply: m = ceil(2^32 / d), d > 1
+struct Divider {
+    int d;
+    unsigned m;
+    __device__ explicit Divider(int d_)
+        : d(d_), m(d_ > 1 ? 0xFFFFFFFFu / (unsigned)d_ + 1 : 0) {}
+    __device__ int operator()(int n) const {
+        return d == 1 ? n : (int)__umulhi((unsigned)n, m);
+    }
+};
 
 __device__ __forceinline__ bool eligible(int h) {
     return h != 6 && h != 7 && h != 15;
 }
 
-__global__ void __launch_bounds__(kThreads)
-encode_planes(const uint8_t* __restrict__ data, int bpp, int level,
-              uint8_t* __restrict__ slots, int* __restrict__ psizes,
-              int* __restrict__ codes) {
-    __shared__ uint8_t sx[kGroup][256];
-    __shared__ int s_h[kGroup][16];
-    __shared__ int s_min[kGroup][16];
-    __shared__ int s_size[kGroup][16];
-    __shared__ int s_len[kGroup][16];
-    __shared__ int s_flag[kGroup][16];  // 1: RLE row, 2: 8-bit row, 4: same
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+    const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+                 "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
 
-    const int t = threadIdx.x;
-    const int q = t >> 4;
-    const int r = t & 15;
-    const long long blk = blockIdx.x;
-    const int j0 = blockIdx.y * kGroup;
-    const int np = min(kGroup, bpp - j0);
-    const uint8_t* src = data + blk * 256LL * bpp;
+// One row thread's share of a plane: its 16 bytes and deltas, its row's
+// header, min and emitted length, and the plane-wide decisions (the same on
+// the plane's 16 lanes).
+struct Plane {
+    int x[16];
+    int prev;  // the byte before x[0] (the previous row's last, 0 at row 0)
+    int h, minb, len, row_off;
+    unsigned eqm, deqm, mmask, elig;
+    int code, psize, lenB;
+};
 
-    for (int i = t; i < 256 * np; i += kThreads) {
-        const int e = i / np;
-        const int qq = i - e * np;
-        sx[qq][e] = src[(long long)e * bpp + j0 + qq];
-    }
-    __syncthreads();
-
-    const bool active = q < np;
-    int x[16], d[16];
-    int h = 0, minb = 0;
-    unsigned eqm = 0, deqm = 0;
-    if (active) {
-        const uint8_t* px = sx[q];
-        const int first = px[0];
-        int prev = r ? px[r * 16 - 1] : 0;
-        int dprev = 0;
-        int mx = -128, mnx = 127, mxd = -128, mnd = 127;
-        bool same = true;
+// Analyse row r of a plane whose element e sits at row[e * S] (row points at
+// the plane's element 16r). The 16 lanes of each half-warp hold the 16 rows
+// of one plane; every lane of the warp calls this (it shuffles).
+__device__ __forceinline__ void analyse(Plane& p, const uint8_t* row, int S,
+                                        int level, int r, int seg) {
 #pragma unroll
-        for (int c = 0; c < 16; ++c) {
-            x[c] = px[r * 16 + c];
-            d[c] = (x[c] - prev) & 255;
-            if (x[c] == prev) eqm |= 1u << c;
-            if (d[c] == dprev) deqm |= 1u << c;
-            same = same && x[c] == first;
-            const int xs = as_int8(x[c]);
-            const int ds = as_int8(d[c]);
-            mx = max(mx, xs);
-            mnx = min(mnx, xs);
-            mxd = max(mxd, ds);
-            mnd = min(mnd, ds);
-            dprev = d[c];
-            prev = x[c];
-        }
-        int bits0 = width_of(mx - mnx);
-        if (bits0 == 6) bits0 = 8;  // header 6 is reserved for delta-RLE
-        const int bits1 = width_of(mxd - mnd);
-        const int bits = min(bits0, bits1);
-        const bool t0 = bits0 == bits;  // direct wins ties
-        minb = (t0 ? mnx : mnd) & 255;
-        int size = 2 * bits + (bits != 8);
-        bool use_rle = false, use_drle = false;
-        if (level >= 1) {
-            const int rle_size = 16 - __popc(eqm) + 2;
-            use_rle = rle_size < size;
-            size = min(size, rle_size);
-            const int drle_size = 16 - __popc(deqm) + 2;
-            use_drle = drle_size < size;
-            size = min(size, drle_size);
-        }
-        h = t0 ? (bits0 == 8 ? 15 : bits0) : ((bits1 == 8 ? 7 : bits1) + 8);
-        if (use_rle && !use_drle) h = 7;
-        if (use_drle) h = 6;
-        int len;
-        if (h == 15) len = 16;
-        else if (h == 7) len = 18 - __popc(eqm);
-        else if (h == 6) len = 18 - __popc(deqm);
-        else len = 2 * (h & 7);
-        const bool all_rle = use_rle || use_drle;
-        s_h[q][r] = h;
-        s_min[q][r] = minb;
-        s_size[q][r] = size;
-        s_len[q][r] = len;
-        s_flag[q][r] = (all_rle ? 1 : 0) | (!all_rle && bits == 8 ? 2 : 0)
-                       | (same ? 4 : 0);
+    for (int c = 0; c < 16; ++c) p.x[c] = row[c * S];
+    int prev = __shfl_up_sync(kFull, p.x[15], 1, 16);
+    if (r == 0) prev = 0;
+    p.prev = prev;
+    int dprev = 0;
+    int mx = -128, mnx = 127, mxd = -128, mnd = 127;
+    unsigned eqm = 0, deqm = 0;
+#pragma unroll
+    for (int c = 0; c < 16; ++c) {
+        const int x = p.x[c];
+        const int ds = (int8_t)(x - prev);  // the delta as int8
+        const int d = ds & 255;
+        eqm |= (unsigned)(x == prev) << c;
+        deqm |= (unsigned)(d == dprev) << c;
+        const int xs = (int8_t)x;
+        mx = max(mx, xs);
+        mnx = min(mnx, xs);
+        mxd = max(mxd, ds);
+        mnd = min(mnd, ds);
+        dprev = d;
+        prev = x;
     }
-    __syncthreads();
-    if (!active) return;  // no barrier below
+    const bool flat = mx == mnx;  // the row's 16 bytes are one value
+    int bits0 = width_of(mx - mnx);
+    if (bits0 == 6) bits0 = 8;  // header 6 is reserved for delta-RLE
+    const int bits1 = width_of(mxd - mnd);
+    const int bits = min(bits0, bits1);
+    const bool t0 = bits0 == bits;  // direct wins ties
+    const int minb = (t0 ? mnx : mnd) & 255;
+    int size = 2 * bits + (bits != 8);
+    bool use_rle = false, use_drle = false;
+    if (level >= 1) {
+        const int rle_size = 16 - __popc(eqm) + 2;
+        use_rle = rle_size < size;
+        size = min(size, rle_size);
+        const int drle_size = 16 - __popc(deqm) + 2;
+        use_drle = drle_size < size;
+        size = min(size, drle_size);
+    }
+    int h = t0 ? (bits0 == 8 ? 15 : bits0) : ((bits1 == 8 ? 7 : bits1) + 8);
+    if (use_rle && !use_drle) h = 7;
+    if (use_drle) h = 6;
+    int len;
+    if (h == 15) len = 16;
+    else if (h == 7) len = 18 - __popc(eqm);
+    else if (h == 6) len = 18 - __popc(deqm);
+    else len = 2 * (h & 7);
+    const bool all_rle = use_rle || use_drle;
+    p.h = h;
+    p.minb = minb;
+    p.len = len;
+    p.eqm = eqm;
+    p.deqm = deqm;
 
-    // plane-level decisions, computed by every row thread of the plane
-    bool all_same = true;
-    int count8 = 0, sum_size = 0, n_elig = 0, row_off = 0;
-    unsigned mmask = 0;
-    for (int rr = 0; rr < 16; ++rr) {
-        const int f = s_flag[q][rr];
-        all_same = all_same && (f & 4);
-        count8 += (f & 1) + ((f >> 1) & 1);
-        sum_size += s_size[q][rr];
-        n_elig += eligible(s_h[q][rr]);
-        if (s_min[q][rr] == (rr ? s_min[q][rr - 1] : 0)) mmask |= 1u << rr;
-        if (rr < r) row_off += s_len[q][rr];
+    // plane-wide decisions over the half-warp
+    const int count8 = __popc((__ballot_sync(kFull, all_rle || bits == 8)
+                               >> seg) & 0xFFFF);
+    p.elig = (__ballot_sync(kFull, eligible(h)) >> seg) & 0xFFFF;
+    int pmin = __shfl_up_sync(kFull, minb, 1, 16);
+    if (r == 0) pmin = 0;
+    p.mmask = (__ballot_sync(kFull, minb == pmin) >> seg) & 0xFFFF;
+    // ALL_SAME: every row flat (its min is its value: a flat row's direct
+    // width 0 wins) and each row's min that of the row before
+    const bool all_same =
+        ((__ballot_sync(kFull, flat) >> seg) & 0xFFFF) == 0xFFFF
+        && (p.mmask | 1) == 0xFFFF;
+    int sum_size = size;
+#pragma unroll
+    for (int o = 8; o; o >>= 1)
+        sum_size += __shfl_xor_sync(kFull, sum_size, o, 16);
+    int incl = len;
+#pragma unroll
+    for (int o = 1; o < 16; o <<= 1) {
+        const int v = __shfl_up_sync(kFull, incl, o, 16);
+        if (r >= o) incl += v;
     }
+    p.row_off = incl - len;
+
     bool normal_rle = false;
     int plane_size = 8 + sum_size;
     if (level >= 1) {
-        const int mins_rle_size = 16 - __popc(mmask) + 2;
+        const int mins_rle_size = 16 - __popc(p.mmask) + 2;
         normal_rle = mins_rle_size < 16 - count8;
         if (normal_rle) plane_size -= (16 - count8) - mins_rle_size;
     }
     const int target = 256 - (level == 0 ? 25 : level == 1 ? 16 : 0);
-    const int code = all_same ? 0 : plane_size > target ? 1 : normal_rle ? 3 : 2;
+    p.code = all_same ? 0 : plane_size > target ? 1 : normal_rle ? 3 : 2;
+    p.psize = p.code == 0 ? 1 : p.code == 1 ? 256 : plane_size;
+    p.lenB = p.code == 3 ? 18 - __popc(p.mmask) : __popc(p.elig);
+}
 
-    const long long plane = blk * bpp + j0 + q;
-    uint8_t* out = slots + plane * kSlot;
-    if (r == 0) {
-        psizes[plane] = code == 0 ? 1 : code == 1 ? 256 : plane_size;
-        codes[plane] = code;
-    }
-    if (code == 0) {
-        if (r == 0) out[0] = sx[q][0];
+// the row's delta c, recomputed (holding 16 deltas costs 16 registers)
+__device__ __forceinline__ int delta(const Plane& p, int c) {
+    return (p.x[c] - (c ? p.x[c - 1] : p.prev)) & 255;
+}
+
+// Row r's share of the plane's bytes, written at o (the plane's start in the
+// shared output window). hn is row r+1's header (for the even rows' nibble).
+__device__ __forceinline__ void emit(const Plane& p, uint8_t* o, int r,
+                                     int hn) {
+    if (p.code == 0) {
+        if (r == 0) o[0] = (uint8_t)p.x[0];
         return;
     }
-    if (code == 1) {
+    if (p.code == 1) {
 #pragma unroll
-        for (int c = 0; c < 16; ++c) out[r * 16 + c] = (uint8_t)x[c];
+        for (int c = 0; c < 16; ++c) o[r * 16 + c] = (uint8_t)p.x[c];
         return;
     }
     // NORMAL / NORMAL_RLE: [header nibbles (8)] [mins section] [16 rows]
-    const int lenB = code == 3 ? 18 - __popc(mmask) : n_elig;
-    if (r == 0) {
-        for (int k = 0; k < 8; ++k)
-            out[k] = (uint8_t)(s_h[q][2 * k] | (s_h[q][2 * k + 1] << 4));
-        int o = 8;
-        if (code == 3) {
-            out[o++] = (uint8_t)(mmask & 255);
-            out[o++] = (uint8_t)(mmask >> 8);
-            for (int rr = 0; rr < 16; ++rr)
-                if (!((mmask >> rr) & 1)) out[o++] = (uint8_t)s_min[q][rr];
-        } else {
-            for (int rr = 0; rr < 16; ++rr)
-                if (eligible(s_h[q][rr])) out[o++] = (uint8_t)s_min[q][rr];
+    const unsigned below = (1u << r) - 1;
+    if (!(r & 1)) o[r >> 1] = (uint8_t)(p.h | (hn << 4));
+    if (p.code == 3) {
+        if (r == 0) {
+            o[8] = (uint8_t)(p.mmask & 255);
+            o[9] = (uint8_t)(p.mmask >> 8);
         }
+        if (!((p.mmask >> r) & 1))
+            o[10 + __popc(~p.mmask & below)] = (uint8_t)p.minb;
+    } else if ((p.elig >> r) & 1) {
+        o[8 + __popc(p.elig & below)] = (uint8_t)p.minb;
     }
-    uint8_t* row = out + 8 + lenB + row_off;
+    uint8_t* row = o + 8 + p.lenB + p.row_off;
+    const int h = p.h;
     if (h == 15) {
 #pragma unroll
-        for (int c = 0; c < 16; ++c) row[c] = (uint8_t)x[c];
+        for (int c = 0; c < 16; ++c) row[c] = (uint8_t)p.x[c];
     } else if (h == 6 || h == 7) {
-        const unsigned m = h == 7 ? eqm : deqm;
+        const unsigned m = h == 7 ? p.eqm : p.deqm;
         row[0] = (uint8_t)(m & 255);
         row[1] = (uint8_t)(m >> 8);
-        int o = 2;
+        int k = 2;
 #pragma unroll
         for (int c = 0; c < 16; ++c)
-            if (!((m >> c) & 1)) row[o++] = (uint8_t)(h == 7 ? x[c] : d[c]);
+            if (!((m >> c) & 1))
+                row[k++] = (uint8_t)(h == 7 ? p.x[c] : delta(p, c));
     } else {
         const int b = h & 7;  // 0 for headers 0 and 8: no row bytes
-        for (int g = 0; g < 2 && b; ++g) {
-            unsigned long long acc = 0;
+        if (b) {
 #pragma unroll
-            for (int k = 0; k < 8; ++k) {
-                const int c = g * 8 + k;
-                const int v = ((h < 8 ? x[c] : d[c]) - minb) & 255;
-                acc |= (unsigned long long)v << (k * b);
+            for (int g = 0; g < 2; ++g) {
+                unsigned long long acc = 0;
+#pragma unroll
+                for (int k = 0; k < 8; ++k) {
+                    const int c = g * 8 + k;
+                    const int v = ((h < 8 ? p.x[c] : delta(p, c)) - p.minb)
+                                  & 255;
+                    acc |= (unsigned long long)v << (k * b);
+                }
+                for (int i = 0; i < b; ++i)
+                    row[g * b + i] = (uint8_t)(acc >> (8 * i));
             }
-            for (int i = 0; i < b; ++i) row[g * b + i] = (uint8_t)(acc >> (8 * i));
         }
     }
 }
 
-// Records (rec_base != nullptr): superblock s's record [1, csize u24,
-// stream] starts at out + rec_base[s], block_base already counts its 4 header
-// bytes, and totals holds each csize. Index mode (K1b, plane_off also set):
-// each plane's record-relative offset (block start + plane start) | code << 24
-// goes to plane_off in 'jb' order (p = plane * nb + block).
-__global__ void __launch_bounds__(kThreads)
-assemble_blocks(const uint8_t* __restrict__ slots,
-                const int* __restrict__ psizes, const int* __restrict__ codes,
-                const long long* __restrict__ block_base, int bpp,
-                uint8_t* __restrict__ out, int nb,
-                const int* __restrict__ totals,
-                const long long* __restrict__ rec_base,
-                int* __restrict__ plane_off) {
-    __shared__ int s_scan[kThreads];
-    __shared__ int s_start[kThreads];
+// win[ph + i] -> dst[i] for i < n, where dst = 16-byte boundary + ph: the
+// whole words as 16-byte stores, the ragged ends as bytes.
+__device__ __forceinline__ void flush(uint8_t* dst, const uint8_t* win,
+                                      int ph, int n, int t) {
+    const int end = ph + n;
+    const int head_end = min(end, (ph + 15) & ~15);
+    const int body_end = max(head_end, end & ~15);
+    for (int i = ph + t; i < head_end; i += kThreads) dst[i - ph] = win[i];
+    uint4* dw = reinterpret_cast<uint4*>(dst - ph);
+    const uint4* sw = reinterpret_cast<const uint4*>(win);
+    for (int w = (head_end >> 4) + t; w < (body_end >> 4); w += kThreads)
+        dw[w] = sw[w];
+    for (int i = body_end + t; i < end; i += kThreads) dst[i - ph] = win[i];
+}
+
+// src[i] -> dst[i] for i < n, any alignments: whole 16-byte words of dst
+// from two aligned 16-byte loads of src and a funnel shift, bytes at the
+// ragged ends
+__device__ __forceinline__ void copy_bytes(uint8_t* dst, const uint8_t* src,
+                                           long long n, int t) {
+    const uintptr_t d0 = (uintptr_t)dst, d1 = d0 + n;
+    const uintptr_t a0 = min(d1, (d0 + 15) & ~(uintptr_t)15);
+    const uintptr_t a1 = max(a0, d1 & ~(uintptr_t)15);
+    for (uintptr_t q = d0 + t; q < a0; q += kThreads)
+        *(uint8_t*)q = src[q - d0];
+    for (uintptr_t q = a1 + t; q < d1; q += kThreads)
+        *(uint8_t*)q = src[q - d0];
+    const uint8_t* s0 = src + (a0 - d0);
+    const int sh = (int)((uintptr_t)s0 & 15);
+    const uint4* sw = reinterpret_cast<const uint4*>(s0 - sh);
+    uint4* dw = reinterpret_cast<uint4*>(a0);
+    const long long nw = (long long)(a1 - a0) >> 4;
+    const int qw = sh >> 2, bits = 8 * (sh & 3);
+    for (long long k = t; k < nw; k += kThreads) {
+        const uint4 lo = sw[k];
+        // the next word only when the shifted word reaches into it (its
+        // start then lies inside the record)
+        const uint4 hi = sh ? sw[k + 1] : lo;
+        const unsigned u[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+        unsigned o[5];
+#pragma unroll
+        for (int i = 0; i < 5; ++i)
+            o[i] = qw == 0 ? u[i] : qw == 1 ? u[i + 1]
+                 : qw == 2 ? u[i + 2] : u[min(i + 3, 7)];
+        dw[k] = make_uint4(__funnelshift_r(o[0], o[1], bits),
+                           __funnelshift_r(o[1], o[2], bits),
+                           __funnelshift_r(o[2], o[3], bits),
+                           __funnelshift_r(o[3], o[4], bits));
+    }
+}
+
+// zeros over [a, b) of device memory
+__device__ __forceinline__ void zero_fill(uint8_t* a, uint8_t* b, int t) {
+    const uintptr_t pa = (uintptr_t)a, pb = (uintptr_t)b;
+    if (pa >= pb) return;
+    const uintptr_t ha = min(pb, (pa + 15) & ~(uintptr_t)15);
+    const uintptr_t hb = max(ha, pb & ~(uintptr_t)15);
+    for (uintptr_t q = pa + t; q < ha; q += kThreads) *(uint8_t*)q = 0;
+    const uint4 z = make_uint4(0, 0, 0, 0);
+    for (uintptr_t q = ha + 16 * (uintptr_t)t; q < hb; q += 16 * kThreads)
+        *(uint4*)q = z;
+    for (uintptr_t q = hb + t; q < pb; q += kThreads) *(uint8_t*)q = 0;
+}
+
+struct Geometry {
+    int tile_blocks;  // whole blocks a tile; 0: a block by groups of 16 planes
+    int pad;          // stage bytes after every 16 elements
+    int stage_bytes;  // one stage buffer
+    int win_off, codes_off;
+};
+
+// Row s of out (row_w bytes): [record header (rec = 4 bytes) | stream |
+// zeros up to row_w if zero_tail]. totals[s] is the stream length.
+__global__ void __launch_bounds__(kThreads, 4)
+encode_superblocks(const uint8_t* __restrict__ data, int nb, int bpp,
+                   int level, uint8_t* __restrict__ out, long long row_w,
+                   int rec, int zero_tail, int* __restrict__ totals,
+                   int* __restrict__ bsizes, int* __restrict__ fsizes,
+                   int* __restrict__ plane_off, Geometry geo) {
+    extern __shared__ __align__(16) uint8_t smem[];
+    __shared__ int s_ps[2][16];
+    __shared__ int s_bstart[kMaxTile + 1];
 
     const int t = threadIdx.x;
-    const long long blk = blockIdx.x;
+    const int lane = t & 31;
+    const int q = t >> 4;          // plane slot of the step
+    const int r = t & 15;          // row of the plane
+    const int seg = lane & 16;     // the half-warp's ballot bits
+    const long long sb = blockIdx.x;
     const int hdr_w = (bpp + 1) / 2;
-    const int* ps = psizes + blk * bpp;
-    const int* cs = codes + blk * bpp;
-    uint8_t* dst = out + block_base[blk];
-    const long long sb = blk / nb;
-    const int b = (int)(blk - sb * nb);
-    long long rel = 0;  // block start, record-relative
-    if (rec_base) {
-        rel = block_base[blk] - rec_base[sb];
-        if (b == 0 && t < 4) {
-            const int csize = totals[sb];
-            out[rec_base[sb] + t] =
-                (uint8_t)(t == 0 ? 1 : csize >> (8 * (t - 1)));
+    const long long bbytes = 256LL * bpp;
+    const uint8_t* src = data + sb * nb * bbytes;
+    uint8_t* row = out + sb * row_w;
+    uint8_t* win = smem + geo.win_off;
+    uint8_t* codes = smem + geo.codes_off;
+    int* po = plane_off ? plane_off + sb * nb * bpp : nullptr;
+    int run = 0;  // stream bytes done
+    int step = 0;
+
+    // the 16-slot scan of plane sizes: slot q's exclusive start, step total
+    auto scan_slots = [&](int psize, bool active, int& pre, int& total) {
+        if (r == 0) s_ps[step & 1][q] = active ? psize : 0;
+        __syncthreads();
+        const int v = s_ps[step & 1][lane & 15];
+        int incl = v;
+#pragma unroll
+        for (int o = 1; o < 16; o <<= 1) {
+            const int u = __shfl_up_sync(kFull, incl, o, 16);
+            if ((lane & 15) >= o) incl += u;
+        }
+        pre = __shfl_sync(kFull, incl - v, q);
+        total = __shfl_sync(kFull, incl, 15);
+        ++step;
+    };
+
+    if (geo.tile_blocks) {
+        const int kb = geo.tile_blocks;
+        const int gstride = 16 * bpp + geo.pad;
+        const int ntiles = (nb + kb - 1) / kb;
+        const Divider by_bpp(bpp);
+        auto load = [&](int tile) {
+            uint8_t* st = smem + (tile & 1) * geo.stage_bytes;
+            const uint8_t* g = src + tile * kb * bbytes;
+            const int nw = min(kb, nb - tile * kb) * 16 * bpp;
+            for (int i = t; i < nw; i += kThreads) {
+                const int grp = by_bpp(i);
+                cp_async16(st + grp * gstride + (i - grp * bpp) * 16,
+                           g + 16LL * i);
+            }
+            cp_async_commit();
+        };
+        load(0);
+        for (int tile = 0; tile < ntiles; ++tile) {
+            if (tile + 1 < ntiles) {
+                load(tile + 1);
+                cp_async_wait<1>();
+            } else {
+                cp_async_wait<0>();
+            }
+            __syncthreads();
+            const uint8_t* st = smem + (tile & 1) * geo.stage_bytes;
+            const int b0 = tile * kb;
+            const int kbt = min(kb, nb - b0);
+            const int np = kbt * bpp;
+            uint8_t* dst = row + rec + run;
+            const int ph = (int)((uintptr_t)dst & 15);
+            int carry = 0;
+            for (int s0 = 0; s0 < np; s0 += 16) {
+                const int fp = s0 + q;
+                const bool active = fp < np;
+                const int fpc = active ? fp : np - 1;
+                const int bt = by_bpp(fpc);
+                const int j = fpc - bt * bpp;
+                Plane p;
+                analyse(p, st + (bt * 16 + r) * gstride + j, bpp, level, r,
+                        seg);
+                const int hn = __shfl_down_sync(kFull, p.h, 1, 16);
+                int pre, total;
+                scan_slots(p.psize, active, pre, total);
+                const int pos = carry + pre + (bt + 1) * hdr_w;
+                if (active) {
+                    emit(p, win + ph + pos, r, hn);
+                    if (r == 0) {
+                        codes[fp] = (uint8_t)p.code;
+                        if (j == 0) s_bstart[bt] = pos - hdr_w;
+                        if (po)
+                            po[(long long)j * nb + b0 + bt] =
+                                (rec + run + pos) | (p.code << 24);
+                    }
+                }
+                carry += total;
+            }
+            const int span = carry + kbt * hdr_w;
+            __syncthreads();
+            for (int i = t; i < kbt * hdr_w; i += kThreads) {
+                const int bt = i / hdr_w;
+                const int k = i - bt * hdr_w;
+                const uint8_t* cb = codes + bt * bpp;
+                const int hi = 2 * k + 1 < bpp ? cb[2 * k + 1] : 0;
+                win[ph + s_bstart[bt] + k] = (uint8_t)(cb[2 * k] | (hi << 4));
+            }
+            for (int i = t; i < kbt; i += kThreads) {
+                const int bs = (i + 1 < kbt ? s_bstart[i + 1] : span)
+                               - s_bstart[i];
+                bsizes[sb * nb + b0 + i] = bs;
+                fsizes[sb * nb + b0 + i] = bs - hdr_w;
+            }
+            __syncthreads();
+            flush(dst, win, ph, span, t);
+            run += span;
+            __syncthreads();  // the window and this stage are free again
+        }
+    } else {
+        // blocks wider than a stage: 16 planes at a time, a thread an element
+        const int gstride = 16 * 16 + geo.pad;
+        for (int b = 0; b < nb; ++b) {
+            const uint8_t* blk = src + b * bbytes;
+            int carry = 0;
+            for (int j0 = 0; j0 < bpp; j0 += 16) {
+                const int n = min(16, bpp - j0);
+                {
+                    const uint8_t* s = blk + (long long)t * bpp + j0;
+                    uint8_t* d = smem + (t >> 4) * gstride + (t & 15) * 16;
+                    for (int i = 0; i < n; ++i) d[i] = __ldg(s + i);
+                }
+                __syncthreads();
+                const bool active = q < n;
+                const int jq = active ? q : n - 1;
+                Plane p;
+                analyse(p, smem + r * gstride + jq, 16, level, r, seg);
+                const int hn = __shfl_down_sync(kFull, p.h, 1, 16);
+                int pre, total;
+                scan_slots(p.psize, active, pre, total);
+                uint8_t* dst = row + rec + run + hdr_w + carry;
+                const int ph = (int)((uintptr_t)dst & 15);
+                if (active) {
+                    emit(p, win + ph + pre, r, hn);
+                    if (r == 0) {
+                        codes[j0 + q] = (uint8_t)p.code;
+                        if (po)
+                            po[(long long)(j0 + q) * nb + b] =
+                                (rec + run + hdr_w + carry + pre)
+                                | (p.code << 24);
+                    }
+                }
+                __syncthreads();
+                flush(dst, win, ph, total, t);
+                carry += total;
+                __syncthreads();  // the window and the stage are free again
+            }
+            for (int k = t; k < hdr_w; k += kThreads) {
+                const int hi = 2 * k + 1 < bpp ? codes[2 * k + 1] : 0;
+                row[rec + run + k] = (uint8_t)(codes[2 * k] | (hi << 4));
+            }
+            if (t == 0) {
+                bsizes[sb * nb + b] = hdr_w + carry;
+                fsizes[sb * nb + b] = carry;
+            }
+            run += hdr_w + carry;
+            __syncthreads();  // codes are rewritten by the next block
         }
     }
-    for (int k = t; k < hdr_w; k += kThreads) {
-        const int hi = 2 * k + 1 < bpp ? cs[2 * k + 1] : 0;
-        dst[k] = (uint8_t)(cs[2 * k] | (hi << 4));
+
+    if (t == 0) totals[sb] = run;
+    if (rec && t < 4) row[t] = (uint8_t)(t == 0 ? 1 : run >> (8 * (t - 1)));
+    if (zero_tail) zero_fill(row + rec + run, row + row_w, t);
+}
+
+// Frame mode: record s (rows[s, :totals[s] + 4]) goes behind the header at
+// hlen + the sum of the records before it; the tail up to cap is zeroed in
+// n_sb shares; CTA 0 writes the header (h0, h1 little-endian, hlen <= 16
+// bytes) and the frame length.
+__global__ void __launch_bounds__(kThreads)
+place_records(const uint8_t* __restrict__ rows, long long row_w,
+              const int* __restrict__ totals, int n_sb,
+              uint8_t* __restrict__ frame, long long cap,
+              unsigned long long h0, unsigned long long h1, int hlen,
+              long long* __restrict__ length) {
+    __shared__ long long s_red[2][kThreads / 32];
+    const int t = threadIdx.x;
+    const int s = blockIdx.x;
+    long long before = 0, all = 0;
+    for (int i = t; i < n_sb; i += kThreads) {
+        const long long v = totals[i] + 4;
+        all += v;
+        if (i < s) before += v;
     }
-    int base = hdr_w;
-    for (int g0 = 0; g0 < bpp; g0 += kThreads) {
-        const int n = min(kThreads, bpp - g0);
-        const int sz = t < n ? ps[g0 + t] : 0;
-        s_scan[t] = sz;
-        __syncthreads();
-        for (int o = 1; o < kThreads; o <<= 1) {
-            const int v = t >= o ? s_scan[t - o] : 0;
-            __syncthreads();
-            s_scan[t] += v;
-            __syncthreads();
-        }
-        s_start[t] = base + s_scan[t] - sz;
-        __syncthreads();
-        if (plane_off && t < n)
-            plane_off[sb * nb * bpp + (long long)(g0 + t) * nb + b] =
-                (int)(rel + s_start[t]) | (cs[g0 + t] << 24);
-        const int warp = t >> 5, lane = t & 31;
-        for (int p = warp; p < n; p += kThreads / 32) {
-            const int len = ps[g0 + p];
-            const uint8_t* s = slots + (blk * bpp + g0 + p) * kSlot;
-            uint8_t* o = dst + s_start[p];
-            for (int i = lane; i < len; i += 32) o[i] = s[i];
-        }
-        base += s_scan[kThreads - 1];
-        __syncthreads();
+#pragma unroll
+    for (int o = 16; o; o >>= 1) {
+        before += __shfl_xor_sync(kFull, before, o);
+        all += __shfl_xor_sync(kFull, all, o);
+    }
+    if ((t & 31) == 0) {
+        s_red[0][t >> 5] = before;
+        s_red[1][t >> 5] = all;
+    }
+    __syncthreads();
+    before = all = 0;
+#pragma unroll
+    for (int w = 0; w < kThreads / 32; ++w) {
+        before += s_red[0][w];
+        all += s_red[1][w];
+    }
+    const long long len = hlen + all;
+    const uint8_t* rec = rows + s * row_w;
+    uint8_t* dst = frame + hlen + before;
+    copy_bytes(dst, rec, totals[s] + 4, t);
+    const long long share = (cap - len + n_sb - 1) / n_sb;
+    const long long z0 = min(cap, len + s * share);
+    zero_fill(frame + z0, frame + min(cap, z0 + share), t);
+    if (s == 0) {
+        if (t < hlen)
+            frame[t] = (uint8_t)((t < 8 ? h0 >> (8 * t) : h1 >> (8 * (t - 8)))
+                                 & 255);
+        if (t == 0) *length = len;
     }
 }
 
@@ -299,29 +575,37 @@ assemble_blocks(const uint8_t* __restrict__ slots,
 #ifdef __CUDACC__
 // C interface (ctypes). Pointers are device pointers; the launch goes on
 // `stream`; the return value is cudaGetLastError() after the launch.
-extern "C" int stenos_encode_planes(const void* data, long long n_blocks,
-                                    int bpp, int level, void* slots,
-                                    void* psizes, void* codes, void* stream) {
-    const dim3 grid((unsigned)n_blocks, (unsigned)((bpp + kGroup - 1) / kGroup));
-    encode_planes<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        (const uint8_t*)data, bpp, level, (uint8_t*)slots, (int*)psizes,
-        (int*)codes);
+
+// plane_off is null except in index mode; the geometry is the host's launch
+// plan (ops/encode_kernel.py launch_plan), smem its shared-memory bytes.
+extern "C" int stenos_encode_superblocks(
+        const void* data, long long n_sb, int nb, int bpp, int level,
+        void* out, long long row_w, int rec, int zero_tail, void* totals,
+        void* bsizes, void* fsizes, void* plane_off, int tile_blocks,
+        int pad, int stage_bytes, int win_off, int codes_off, int smem,
+        void* stream) {
+    const Geometry geo{tile_blocks, pad, stage_bytes, win_off, codes_off};
+    cudaError_t e = cudaFuncSetAttribute(
+        encode_superblocks, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (e != cudaSuccess) return (int)e;
+    encode_superblocks<<<(unsigned)n_sb, kThreads, smem,
+                         (cudaStream_t)stream>>>(
+        (const uint8_t*)data, nb, bpp, level, (uint8_t*)out, row_w, rec,
+        zero_tail, (int*)totals, (int*)bsizes, (int*)fsizes, (int*)plane_off,
+        geo);
     return (int)cudaGetLastError();
 }
 
-// totals, rec_base and plane_off are null for K1's streams; totals and
-// rec_base are set for records (index rows or a frame), plane_off for K1b's
-// decode index; see assemble_blocks.
-extern "C" int stenos_assemble_blocks(const void* slots, const void* psizes,
-                                      const void* codes, const void* block_base,
-                                      long long n_blocks, int bpp, void* out,
-                                      int nb, const void* totals,
-                                      const void* rec_base, void* plane_off,
-                                      void* stream) {
-    assemble_blocks<<<(unsigned)n_blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        (const uint8_t*)slots, (const int*)psizes, (const int*)codes,
-        (const long long*)block_base, bpp, (uint8_t*)out, nb,
-        (const int*)totals, (const long long*)rec_base, (int*)plane_off);
+extern "C" int stenos_place_records(const void* rows, long long row_w,
+                                    const void* totals, long long n_sb,
+                                    void* frame, long long cap,
+                                    unsigned long long h0,
+                                    unsigned long long h1, int hlen,
+                                    void* length, void* stream) {
+    place_records<<<(unsigned)n_sb, kThreads, 0, (cudaStream_t)stream>>>(
+        (const uint8_t*)rows, row_w, (const int*)totals, (int)n_sb,
+        (uint8_t*)frame, cap, h0, h1, hlen, (long long*)length);
     return (int)cudaGetLastError();
 }
 #endif

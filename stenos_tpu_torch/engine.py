@@ -20,7 +20,8 @@ and two device-resident paths with no host byte traffic:
   roundtrip_device       encode_superblocks_index (records + decode index)
                          -> decode_rows_derive on the records themselves.
   compress_frame_device  encode_superblocks_frame: the same kernel writes
-                         the records behind the frame header, in one buffer.
+                         the records, a second launch moves them behind the
+                         frame header, in one buffer.
 
 Counterpart of stenos_tpu/engine_jax.py (JaxEngine, decompress_frame_batched,
 roundtrip_device, compress_frame_device_jit).

@@ -7,7 +7,8 @@ stenos_tpu/ops/encode_pallas.py::make_encode_kernel); a CPU tensor goes
 through encode_superblocks_plain, the torch twin of
 stenos_tpu/engine_jax.py::encode_superblocks_body. Both return
 
-  streams (n_sb, W) uint8  block streams, front-packed, zero-padded
+  streams (n_sb, W) uint8  block streams, front-packed, zero-padded (on
+                           the card, a view of rows of the stream bound)
   totals  (n_sb,) int32    stream length (no 4-byte record header)
   bsizes  (n_sb, nb) int32 compressed size per block
   fsizes  (n_sb, nb) int32 sum of plane sizes per block (LZ candidacy)
@@ -20,10 +21,14 @@ with_index=True): whole frame records and the decode index that
 decode_kernel.decode_rows_derive reads. Its plain version is
 encode_superblocks_index_plain.
 
-encode_superblocks_frame(data, bpp, block_level, header) launches the same
-kernel once more in another layout: the records back to back behind a frame
-header, in one buffer (the device frame compress). Its plain version is
+encode_superblocks_frame(data, bpp, block_level, header) writes the records
+back to back behind a frame header, in one buffer (the device frame
+compress): the same kernel's records, then a second launch, place_records,
+that moves each to its place. Its plain version is
 encode_superblocks_frame_plain.
+
+The streams and index modes are one launch each. launch_plan gives the
+kernel's shared-memory geometry for a bpp.
 """
 
 import ctypes
@@ -35,19 +40,70 @@ from ..codec.emit import block_header_bytes_torch, plane_sections_torch
 from . import _cuda
 from .compact import compact
 
-# launches of both kernels below (chip_smoke.py reads these): K1's modes
-# (streams, frame), and the index mode (K1b), counted apart
+# launches of encode_superblocks (and, in frame mode, place_records) below
+# (chip_smoke.py reads these): K1's modes (streams, frame), and the index
+# mode (K1b), counted apart
 launches = 0
 launches_index = 0
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _I = ctypes.c_int
+_ULL = ctypes.c_ulonglong
 _SIGNATURES = {
-    "stenos_encode_planes": [_P, _LL, _I, _I, _P, _P, _P, _P],
-    "stenos_assemble_blocks": [_P, _P, _P, _P, _LL, _I, _P, _I, _P, _P, _P,
-                               _P],
+    "stenos_encode_superblocks": [_P, _LL, _I, _I, _I, _P, _LL, _I, _I, _P,
+                                  _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "stenos_place_records": [_P, _LL, _P, _LL, _P, _LL, _ULL, _ULL, _I, _P,
+                             _P],
 }
+
+SMEM_LIMIT = 232448  # shared memory a CTA can use on Hopper
+TILE_BYTES = 8192    # input bytes a tile aims to stage
+STAGE_MAX = 16384    # the widest block staged whole; wider go by plane groups
+MAX_TILE = 64        # blocks a tile, at most (kMaxTile in the kernel)
+
+
+def _up16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def launch_plan(bpp: int, nb: int) -> dict:
+    """Shared-memory geometry of the encode kernel for one superblock of nb
+    blocks of bpp bytes per element.
+
+    A block of at most STAGE_MAX bytes is staged whole: a tile of
+    tile_blocks blocks, two stage buffers (cp.async double buffering), each
+    element-major with `pad` bytes after every 16 elements (16 when bpp is
+    even, none when odd: either way a row's 16 elements span an odd number
+    of 16-byte words, so the 16 rows of a plane start on 8 distinct banks,
+    two rows a bank). tile_blocks is the count (at most nb, MAX_TILE and
+    STAGE_MAX bytes) whose planes fill the 16-plane steps best, the
+    nearest to TILE_BYTES among equals. A wider block goes by groups of 16
+    planes (tile_blocks 0): one stage of 256 elements x 16 bytes. Then the
+    output window (a tile's largest output and 15 bytes of phase) and the
+    plane codes. Returns tile_blocks, pad, stage_bytes, win_off, codes_off and
+    smem (total bytes)."""
+    hdr_w = (bpp + 1) // 2
+    blk = 256 * bpp
+    if blk <= STAGE_MAX:
+        def fill(k):
+            return k * bpp / (16 * -(-k * bpp // 16))
+        kb = max(range(1, min(nb, MAX_TILE, STAGE_MAX // blk) + 1),
+                 key=lambda k: (round(fill(k), 9), -abs(k * blk - TILE_BYTES)))
+        pad = 16 if bpp % 2 == 0 else 0
+        stage = kb * 16 * (16 * bpp + pad)
+        n_stage, win = 2, _up16(15 + kb * (hdr_w + blk))
+        n_codes = kb * bpp
+    else:
+        kb, pad = 0, 16
+        stage = 16 * (16 * 16 + pad)
+        n_stage, win = 1, _up16(15 + 16 * 256)
+        n_codes = bpp
+    win_off = n_stage * stage
+    codes_off = win_off + win
+    return {"tile_blocks": kb, "pad": pad, "stage_bytes": stage,
+            "win_off": win_off, "codes_off": codes_off,
+            "smem": codes_off + _up16(n_codes)}
 
 
 def encode_superblocks_plain(data, bpp: int, block_level: int):
@@ -179,7 +235,7 @@ def _check_args(name, data, bpp, block_level):
     if (data.dtype != torch.uint8 or data.dim() != 2
             or not data.is_contiguous()):
         raise ValueError(f"{name}: need contiguous (n_sb, sbytes) uint8")
-    if (bpp < 1 or data.shape[1] % (256 * bpp)
+    if (bpp < 1 or data.shape[1] % (256 * bpp) or 0 in data.shape
             or not 0 <= block_level <= 2):
         raise ValueError(f"{name}: bad shape {tuple(data.shape)} for bpp "
                          f"{bpp}, block level {block_level}")
@@ -193,63 +249,59 @@ def _count(index: bool):
         launches += 1
 
 
-def _launch(data, bpp: int, block_level: int, mode: str, rows_width=None,
-            header=b""):
-    """Both launches of one mode, each counted. mode "streams" (K1): returns
-    (streams, stream totals, bsizes, fsizes); "index" (K1b): (rows, stream
-    totals, bsizes, fsizes, plane_off); "frame": (frame, length)."""
+def _encode_rows(data, bpp: int, block_level: int, row_w: int, rec: int,
+                 zero_tail: bool, index: bool):
+    """One launch of encode_superblocks: each superblock's stream (rec 0) or
+    record (rec 4: [1, csize u24, stream]) at the start of its row of row_w
+    bytes, zeros after it when zero_tail. Returns (rows, stream totals,
+    bsizes, fsizes, plane_off or None)."""
     lib = _cuda.load("encode_blocks", _SIGNATURES)
     dev = data.device
     n_sb, sbytes = data.shape
     nb = sbytes // (256 * bpp)
-    n_blocks = n_sb * nb
-    hdr_w = (bpp + 1) // 2
-    index = mode == "index"
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    slots = torch.empty(n_blocks * bpp * 256, dtype=torch.uint8, device=dev)
-    psizes = torch.empty(n_blocks * bpp, dtype=torch.int32, device=dev)
-    codes = torch.empty(n_blocks * bpp, dtype=torch.int32, device=dev)
-    _cuda.check(lib.stenos_encode_planes(
-        data.data_ptr(), n_blocks, bpp, block_level, slots.data_ptr(),
-        psizes.data_ptr(), codes.data_ptr(), stream), "encode_planes")
+    if data.data_ptr() % 16:  # the kernel copies 16-byte words
+        data = data.clone()
+    plan = launch_plan(bpp, nb)
+    if plan["smem"] > SMEM_LIMIT:
+        raise ValueError(f"encode_superblocks: bpp {bpp} needs "
+                         f"{plan['smem']} bytes of shared memory")
+    rows = torch.empty((n_sb, row_w), dtype=torch.uint8, device=dev)
+    totals = torch.empty(n_sb, dtype=torch.int32, device=dev)
+    bsizes = torch.empty((n_sb, nb), dtype=torch.int32, device=dev)
+    fsizes = torch.empty((n_sb, nb), dtype=torch.int32, device=dev)
+    plane_off = (torch.empty((n_sb, bpp * nb), dtype=torch.int32, device=dev)
+                 if index else None)
+    _cuda.check(lib.stenos_encode_superblocks(
+        data.data_ptr(), n_sb, nb, bpp, block_level, rows.data_ptr(), row_w,
+        rec, int(zero_tail), totals.data_ptr(), bsizes.data_ptr(),
+        fsizes.data_ptr(), plane_off.data_ptr() if index else None,
+        plan["tile_blocks"], plan["pad"], plan["stage_bytes"],
+        plan["win_off"], plan["codes_off"], plan["smem"],
+        torch.cuda.current_stream(dev).cuda_stream), "encode_superblocks")
     _count(index)
+    return rows, totals, bsizes, fsizes, plane_off
 
-    fsizes = psizes.view(n_sb, nb, bpp).sum(-1, dtype=torch.int32)
-    bsizes = fsizes + hdr_w
-    totals = bsizes.sum(-1, dtype=torch.int32)
-    starts = torch.cumsum(bsizes, -1, dtype=torch.int64) - bsizes
-    sb_idx = torch.arange(n_sb, dtype=torch.int64, device=dev)
-    rec_base = plane_off = None
-    if mode == "frame":
-        # records back to back behind the header: no device-to-host copy
-        rec_len = totals.to(torch.int64) + 4
-        rec_base = len(header) + torch.cumsum(rec_len, 0) - rec_len
-        out = torch.zeros(len(header) + n_sb * record_bound(nb, bpp),
-                          dtype=torch.uint8, device=dev)
-        out[:len(header)] = torch.tensor(list(header), dtype=torch.uint8)
-    else:
-        # rows_width given: no device-to-host copy (the caller checked it
-        # against record_bound); else one read of the longest stream
-        width = rows_width or max(int(totals.max()) + 4 * index, 1)
-        out = torch.zeros((n_sb, width), dtype=torch.uint8, device=dev)
-        if index:
-            rec_base = width * sb_idx
-            plane_off = torch.empty((n_sb, bpp * nb), dtype=torch.int32,
-                                    device=dev)
-    base = starts + (rec_base[:, None] + 4 if rec_base is not None
-                     else width * sb_idx[:, None])
-    _cuda.check(lib.stenos_assemble_blocks(
-        slots.data_ptr(), psizes.data_ptr(), codes.data_ptr(),
-        base.data_ptr(), n_blocks, bpp, out.data_ptr(), nb,
-        totals.data_ptr() if rec_base is not None else None,
-        rec_base.data_ptr() if rec_base is not None else None,
-        plane_off.data_ptr() if index else None, stream), "assemble_blocks")
-    _count(index)
-    if mode == "frame":
-        return out, rec_len.sum() + len(header)
-    if index:
-        return out, totals, bsizes, fsizes, plane_off
-    return out, totals, bsizes, fsizes
+
+def _place_records(rows, totals, header: bytes, nb: int, bpp: int):
+    """The frame mode's second launch: the records of rows (as
+    _encode_rows wrote them, rec 4) back to back behind header, the rest of
+    the frame's capacity zeroed. Returns (frame, length 0-d int64)."""
+    lib = _cuda.load("encode_blocks", _SIGNATURES)
+    dev = rows.device
+    n_sb = rows.shape[0]
+    if len(header) > 16:
+        raise ValueError("encode_superblocks_frame: header longer than 16")
+    cap = len(header) + n_sb * record_bound(nb, bpp)
+    frame = torch.empty(cap, dtype=torch.uint8, device=dev)
+    length = torch.empty((), dtype=torch.int64, device=dev)
+    h = header.ljust(16, b"\0")
+    _cuda.check(lib.stenos_place_records(
+        rows.data_ptr(), rows.shape[1], totals.data_ptr(), n_sb,
+        frame.data_ptr(), cap, int.from_bytes(h[:8], "little"),
+        int.from_bytes(h[8:], "little"), len(header), length.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream), "place_records")
+    _count(False)
+    return frame, length
 
 
 def encode_superblocks(data, bpp: int, block_level: int):
@@ -258,7 +310,12 @@ def encode_superblocks(data, bpp: int, block_level: int):
     if data.device.type == "cpu":
         return encode_superblocks_plain(data, bpp, block_level)
     _check_args("encode_superblocks", data, bpp, block_level)
-    return _launch(data, bpp, block_level, "streams")
+    nb = data.shape[1] // (256 * bpp)
+    rows, totals, bsizes, fsizes, _ = _encode_rows(
+        data, bpp, block_level, record_bound(nb, bpp) - 4, 0, True, False)
+    # the streams as wide as the longest (one device-to-host read): a view
+    # of the stream-bound rows, whose zeros run to the row's end
+    return rows[:, :max(int(totals.max()), 1)], totals, bsizes, fsizes
 
 
 def encode_superblocks_index(data, bpp: int, block_level: int,
@@ -280,9 +337,13 @@ def encode_superblocks_index(data, bpp: int, block_level: int,
         return encode_superblocks_index_plain(data, bpp, block_level,
                                               rows_width)
     _check_args("encode_superblocks_index", data, bpp, block_level)
-    rows, stream_totals, bsizes, fsizes, plane_off = _launch(
-        data, bpp, block_level, "index", rows_width)
-    return rows, stream_totals + 4, bsizes, fsizes, plane_off
+    rows, stream_totals, bsizes, fsizes, plane_off = _encode_rows(
+        data, bpp, block_level, rows_width or record_bound(nb, bpp), 4, True,
+        True)
+    totals = stream_totals + 4
+    if rows_width is None:  # cut to the longest record: a copy
+        rows = rows[:, :int(totals.max())].contiguous()
+    return rows, totals, bsizes, fsizes, plane_off
 
 
 def encode_superblocks_frame(data, bpp: int, block_level: int,
@@ -295,4 +356,7 @@ def encode_superblocks_frame(data, bpp: int, block_level: int,
     if data.device.type == "cpu":
         return encode_superblocks_frame_plain(data, bpp, block_level, header)
     _check_args("encode_superblocks_frame", data, bpp, block_level)
-    return _launch(data, bpp, block_level, "frame", header=header)
+    nb = data.shape[1] // (256 * bpp)
+    rows, totals = _encode_rows(data, bpp, block_level, record_bound(nb, bpp),
+                                4, False, False)[:2]
+    return _place_records(rows, totals, header, nb, bpp)

@@ -2,10 +2,12 @@
 the JAX package's XLA pipeline and its Pallas kernel in interpret mode.
 
 Each shape batches the five data kinds as five superblocks, so one JAX
-compile covers them. The grid covers bpp {2, 3, 4, 8}, nb {1, 3, 8} and
-block levels 1 and 2; interpret-mode Pallas is slow, so it runs on two of
-the shapes. Streams are compared up to totals (the padding is not part of
-the contract); sizes exactly."""
+compile covers them. The grid covers bpp {1, 2, 3, 4, 8, 24}, nb {1, 2,
+3, 8} and block levels 0, 1 and 2 (bpp 1 and 24 are where the CUDA
+kernel's tiling changes: 16 blocks a step, and 16-plane steps that end
+ragged); interpret-mode Pallas is slow, so it runs on two of the shapes.
+The kernel's launch plan is checked for bpp 1-1024. Streams are compared
+up to totals (the padding is not part of the contract); sizes exactly."""
 
 import numpy as np
 import pytest
@@ -15,13 +17,17 @@ import jax.numpy as jnp
 
 from stenos_tpu.engine_jax import encode_superblocks_jit
 from stenos_tpu.ops.encode_pallas import encode_slabs_body
-from stenos_tpu_torch.ops.encode_kernel import (encode_superblocks,
-                                                encode_superblocks_plain)
+from stenos_tpu_torch import frame as fr
+from stenos_tpu_torch.ops.encode_kernel import (SMEM_LIMIT, STAGE_MAX,
+                                                encode_superblocks,
+                                                encode_superblocks_plain,
+                                                launch_plan)
 
 from conftest import gen_elements
 
 KINDS = ["sorted", "random", "same", "rle", "smallrange"]
-GRID = [(2, 1, 2), (3, 3, 1), (4, 8, 2), (8, 3, 1)]  # (bpp, nb, level)
+GRID = [(2, 1, 2), (3, 3, 1), (4, 8, 2), (8, 3, 1), (1, 1, 0),
+        (24, 2, 2)]  # (bpp, nb, level)
 
 
 @pytest.fixture(autouse=True)
@@ -31,10 +37,20 @@ def _no_timing_knobs(monkeypatch):
     monkeypatch.delenv("STENOS_ENC_NOPACK", raising=False)
 
 
+def _wide_elements(rng, bpp, nelem, kind):
+    """gen_elements' values as zero-extended little-endian bpp-byte
+    elements (gen_elements cuts elements wider than 16 bytes short)."""
+    a = np.frombuffer(gen_elements(rng, 8, nelem, kind), "<u8")
+    out = np.zeros((nelem, bpp), np.uint8)
+    out[:, :8] = a.view(np.uint8).reshape(nelem, 8)
+    return out.tobytes()
+
+
 def _batch(rng, bpp, nb):
     sbytes = nb * 256 * bpp
+    gen = gen_elements if bpp <= 16 else _wide_elements
     return np.stack([
-        np.frombuffer(gen_elements(rng, bpp, sbytes // bpp + 1, k),
+        np.frombuffer(gen(rng, bpp, sbytes // bpp + 1, k),
                       np.uint8)[:sbytes] for k in KINDS])
 
 
@@ -74,3 +90,31 @@ def test_wrapper_uses_plain_on_cpu(rng):
     got = encode_superblocks(batch, 4, 2)
     want = encode_superblocks_plain(batch, 4, 2)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_launch_plan_fits_and_covers_every_block():
+    """For bpp 1-1024 at the frame's superblock, one block and 1000 blocks:
+    the plan fits a CTA's shared memory, its tiles take every block once
+    and each stage holds its tile (blocks wider than STAGE_MAX go by plane
+    groups), and the output window holds a tile's largest output."""
+    for bpp in range(1, 1025):
+        hdr_w = (bpp + 1) // 2
+        for nb in {fr.super_block_size(256 * bpp) // (256 * bpp), 1, 1000}:
+            p = launch_plan(bpp, nb)
+            assert p["smem"] <= SMEM_LIMIT, (bpp, nb, p)
+            kb = p["tile_blocks"]
+            assert (kb == 0) == (256 * bpp > STAGE_MAX), (bpp, nb, p)
+            if kb:
+                starts = range(0, nb, kb)
+                covered = [b for b0 in starts
+                           for b in range(b0, min(nb, b0 + kb))]
+                assert covered == list(range(nb)) and kb <= min(nb, 64)
+                assert p["stage_bytes"] >= kb * 256 * bpp
+                assert p["win_off"] >= 2 * p["stage_bytes"]
+                out = kb * (hdr_w + 256 * bpp)
+            else:
+                assert p["stage_bytes"] >= 256 * 16
+                assert p["win_off"] >= p["stage_bytes"]
+                out = 16 * 256
+            assert p["codes_off"] - p["win_off"] >= 15 + out, (bpp, nb, p)
+            assert p["smem"] - p["codes_off"] >= (kb or 1) * bpp
