@@ -43,7 +43,6 @@ from stenos_tpu_torch import frame as fr
 from stenos_tpu_torch import native
 from stenos_tpu_torch.host import zstd as zstd_host
 from stenos_tpu_torch.device_container import record_blocks
-from stenos_tpu_torch.encode_timing import cuda_ms, sorted_int32
 from stenos_tpu_torch.engine import (CHUNK_BYTES, compress_frame_device,
                                      frame_header_bytes, roundtrip_device)
 from stenos_tpu_torch.entropy import (device_decode, fse_kernel,
@@ -58,9 +57,11 @@ from stenos_tpu_torch.ops import _cuda, decode_kernel, encode_kernel
 from stenos_tpu_torch.ops.encode_kernel import record_bound
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-# integer instructions a second: 132 SMs x 4 issue slots x 32 lanes x the
-# 1.98 GHz boost clock (H100 SXM data sheet)
-INT_OPS_PER_S = 132 * 4 * 32 * 1.98e9
+# 32-bit integer instructions a second: 132 SMs x 64 lanes a clock (the
+# CUDA C++ Programming Guide's throughput table, compute capability 9.0:
+# add, compare, min/max, logical and shift ops) x the 1.98 GHz boost clock
+# (H100 SXM data sheet)
+INT_OPS_PER_S = 132 * 64 * 1.98e9
 # integer instructions an input byte that the encode cannot do without: the
 # per-element body of analyse() in csrc/encode_blocks.cu (load, sign
 # extensions, delta, two repeat-mask bits, the two running min/max pairs);
@@ -107,6 +108,13 @@ def low_card(rng, n):
                       p=p / p.sum())
 
 
+def sorted_int32(nbytes, seed=42):
+    """bench.py's headline data: sorted uint32 values below 2**30."""
+    rng = np.random.default_rng(seed)
+    a = np.sort(rng.integers(0, 1 << 30, nbytes // 4, dtype=np.int64))
+    return a.astype(np.uint32).view(np.uint8)
+
+
 def log(msg):
     print(msg, flush=True)
 
@@ -117,14 +125,31 @@ def check(ok, what):
         raise RuntimeError(f"chip_smoke check failed: {what}")
 
 
-def encode_bound(in_bytes, moved):
-    """The encode's bound: the larger of its bytes over the memory rate and
-    its integer instructions over the issue rate."""
+def cuda_ms(fn, reps):
+    """Mean device time of fn() over reps calls, by CUDA events, warm."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def encode_bound(in_bytes, moved, rows_bytes):
+    """The encode's bound: the larger of its bytes (moved: the input, the
+    streams or records, the sizes) over the memory rate and its integer
+    instructions over their rate. rows_bytes_ms counts the whole rows
+    returned instead, the zeros after each stream or record included."""
     b_ms = moved / HBM_BYTES_PER_S * 1e3
     o_ms = ENCODE_OPS_PER_BYTE * in_bytes / INT_OPS_PER_S * 1e3
     return {"bound_ms": max(b_ms, o_ms),
             "bound_by": "bytes" if b_ms >= o_ms else "operations",
-            "bytes": moved, "bytes_ms": b_ms, "ops_ms": o_ms}
+            "bytes": moved, "bytes_ms": b_ms, "ops_ms": o_ms,
+            "rows_bytes_ms": (moved + rows_bytes) / HBM_BYTES_PER_S * 1e3}
 
 
 def encode_err(k, p):
@@ -248,8 +273,6 @@ def phase_kernels(dev):
             k = encode_kernel.encode_superblocks(x, bpp, level)
             p = encode_kernel.encode_superblocks_plain(x, bpp, level)
             record("encode_blocks", encode_err(k, p), (bpp, kind, level))
-            check(zeros_past(k[0], k[1]), ("streams padding", bpp, kind,
-                                           level))
             hdr = frame_header_bytes(n_sb * sb, sb, bpp, 1)
             k = encode_kernel.encode_superblocks_frame(x, bpp, level, hdr)
             p = encode_kernel.encode_superblocks_frame_plain(x, bpp, level,
@@ -307,7 +330,7 @@ def phase_kernels(dev):
         f"{GRID_BPP} x 3 and 1 superblocks x 5 kinds x levels 1,2; the "
         "encodes also at block level 0: encode_blocks as streams and as a "
         "frame, encode_blocks_index at the longest record's width and at "
-        "record_bound (zeros past every stream and record), "
+        "record_bound (zeros past every record), "
         "decode_rows_derive in 'jb' and 'bj' order")
     huff_grid(rng, dev, record)
     log(f"max abs err on the card: {err}")
@@ -445,12 +468,22 @@ def phase_timing(dev, raw, frame1, frame2):
         enc, encode_kernel.encode_superblocks_plain(x, 4, 2))}
     check(err["encode_blocks"] == 0, "encode at the main path's shape")
     k_ms = cuda_ms(lambda: encode_kernel.encode_superblocks(x, 4, 2), 10)
+    # the launch alone, without the wrapper's read of the longest stream;
+    # then with zeros written to the stream bound, as index rows get them
+    rb = record_bound(sb // 1024, 4)
+    launch_ms = cuda_ms(lambda: encode_kernel._encode_rows(
+        x, 4, 2, rb - 4, 0, False, False), 10)
+    tail_ms = cuda_ms(lambda: encode_kernel._encode_rows(
+        x, 4, 2, rb - 4, 0, True, False), 10)
     p_ms = cuda_ms(lambda: encode_kernel.encode_superblocks_plain(x, 4, 2), 2)
-    # the input, the (n_sb, W) streams it returns, the sizes
-    moved = (x.numel() + enc[0].numel() + 4 * (enc[2].numel()
-                                               + enc[3].numel() + per_call))
-    out["encode_blocks"] = {"ms": k_ms, "plain_ms": p_ms,
-                            **encode_bound(x.numel(), moved)}
+    # the input, the streams, the sizes
+    stream_bytes = int(enc[1].sum())
+    moved = (x.numel() + stream_bytes + 4 * (enc[2].numel() + enc[3].numel()
+                                             + per_call))
+    out["encode_blocks"] = {
+        "ms": k_ms, "launch_ms": launch_ms, "launch_zero_tail_ms": tail_ms,
+        "plain_ms": p_ms,
+        **encode_bound(x.numel(), moved, enc[0].numel() - stream_bytes)}
     h2d = cuda_ms(lambda: host.to(dev), 5)
     d2h = cuda_ms(lambda: enc[0].cpu(), 5)
     out["encode_blocks"].update(h2d_ms=h2d, d2h_ms=d2h,
@@ -546,19 +579,16 @@ def phase_device(dev, raw, frame1):
     err["encode_blocks_index"] = encode_err(k, plain)
     check(err["encode_blocks_index"] == 0, "K1b at the round trip's shape")
     rec_bytes = int(totals.sum())
-    # the input, the whole rows (records and the zeros after them), the
-    # index, the sizes; records_bytes_ms counts the records alone
-    sizes = k[4].numel() * 4 + 4 * (k[2].numel() + k[3].numel() + n_sb)
-    moved = x.numel() + k[0].numel() + sizes
+    # the input, the records, the index, the sizes
+    moved = (x.numel() + rec_bytes + k[4].numel() * 4
+             + 4 * (k[2].numel() + k[3].numel() + n_sb))
     times["encode_blocks_index"] = {
         "ms": cuda_ms(lambda: encode_kernel.encode_superblocks_index(
             x, 4, 2, width), 3),
         "plain_ms": cuda_ms(lambda: in_chunks(
             encode_kernel.encode_superblocks_index_plain, (x,), 4, 2, width),
             1),
-        **encode_bound(x.numel(), moved),
-        "records_bytes_ms": (x.numel() + rec_bytes + sizes)
-        / HBM_BYTES_PER_S * 1e3}
+        **encode_bound(x.numel(), moved, k[0].numel() - rec_bytes)}
     dec = decode_kernel.decode_rows_derive(k[0], k[4], 4, nb, "jb")
     err["decode_rows_derive"] = decode_err(dec, in_chunks(
         decode_kernel.decode_rows_derive_plain, (k[0], k[4]), 4, nb, "jb"))

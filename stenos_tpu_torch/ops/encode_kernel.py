@@ -7,8 +7,9 @@ stenos_tpu/ops/encode_pallas.py::make_encode_kernel); a CPU tensor goes
 through encode_superblocks_plain, the torch twin of
 stenos_tpu/engine_jax.py::encode_superblocks_body. Both return
 
-  streams (n_sb, W) uint8  block streams, front-packed, zero-padded (on
-                           the card, a view of rows of the stream bound)
+  streams (n_sb, W) uint8  block streams, front-packed (the plain version
+                           zero-pads them; on the card, a view of rows of
+                           the stream bound, unwritten past totals)
   totals  (n_sb,) int32    stream length (no 4-byte record header)
   bsizes  (n_sb, nb) int32 compressed size per block
   fsizes  (n_sb, nb) int32 sum of plane sizes per block (LZ candidacy)
@@ -312,9 +313,9 @@ def encode_superblocks(data, bpp: int, block_level: int):
     _check_args("encode_superblocks", data, bpp, block_level)
     nb = data.shape[1] // (256 * bpp)
     rows, totals, bsizes, fsizes, _ = _encode_rows(
-        data, bpp, block_level, record_bound(nb, bpp) - 4, 0, True, False)
+        data, bpp, block_level, record_bound(nb, bpp) - 4, 0, False, False)
     # the streams as wide as the longest (one device-to-host read): a view
-    # of the stream-bound rows, whose zeros run to the row's end
+    # of the stream-bound rows; no reader looks past totals, so no zeros
     return rows[:, :max(int(totals.max()), 1)], totals, bsizes, fsizes
 
 
