@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--out chiprun_out/chip_smoke.json]
+    python3 chip_smoke.py [--out chiprun_out/chip_smoke.json] [--old-src DIR]
 
 Builds the encode_blocks, decode_rows, huff_encode, huff_decode, fse_encode,
 seq_decode and seq_exec kernels from stenos_tpu_torch/csrc (and the native
@@ -11,10 +11,14 @@ decode_rows_derive (K2b), huff_histogram (K3), huff_encode_streams (K4),
 huff_decode_streams (K5), fse_encode (K6), seq_decode (K7) and seq_exec (X1)
 -- against its plain torch version on the card, checks 32 MiB frames byte for byte against the
 numpy host path, then drives the main path -- compress / decompress of 512
-MiB of sorted int32 (bytesoftype 4) at levels 1 and 2 -- and the
+MiB of sorted int32 (bytesoftype 4) at levels 1 and 2, each decompress
+exactly one K2 launch a 64 MiB batch, then a second decompress split by
+step (host pass, copies, K2, copy into the output) -- and the
 device-resident paths on the same 512 MiB: roundtrip_device,
 DeviceCompressedArray (build, reads, serialize, deserialize) and
-compress_frame_device; then DeviceCompressedArray(entropy=True) on 512 MiB
+compress_frame_device; K2 and K2b timed at their paths' shapes beside
+their bounds (with --old-src, a checkout of an earlier commit, its decode
+kernels too, in turns); then DeviceCompressedArray(entropy=True) on 512 MiB
 of a low-cardinality byte column and on the sorted int32; then the device
 zstd entropy stage (phase_zstd): a grid of payloads and the 512 MiB text
 cell (code text, bpp 1, level 2) compressed through libzstd and through
@@ -27,6 +31,8 @@ failure ends the run with a non-zero exit code. The last line is
 """
 
 import argparse
+import importlib
+import importlib.util
 import itertools
 import json
 import os
@@ -39,6 +45,7 @@ import numpy as np
 import torch
 
 import stenos_tpu_torch as stt
+from stenos_tpu_torch import engine as eng
 from stenos_tpu_torch import frame as fr
 from stenos_tpu_torch import native
 from stenos_tpu_torch.host import zstd as zstd_host
@@ -67,6 +74,10 @@ INT_OPS_PER_S = 132 * 64 * 1.98e9
 # extensions, delta, two repeat-mask bits, the two running min/max pairs);
 # plane decisions and emission come on top
 ENCODE_OPS_PER_BYTE = 11
+# integer instructions an output byte that the decode cannot do without: the
+# per-element body of csrc/decode_rows.cu (unpack shift and mask, the min or
+# the running sum, the carry, the store); the records come on top
+DECODE_OPS_PER_BYTE = 5
 MIB = 1024 * 1024
 HEADLINE_MB = 512  # bench.py's headline size
 TEXT_MB = 512  # the text cell: 4096 superblocks of 128 KiB
@@ -150,6 +161,34 @@ def encode_bound(in_bytes, moved, rows_bytes):
             "bound_by": "bytes" if b_ms >= o_ms else "operations",
             "bytes": moved, "bytes_ms": b_ms, "ops_ms": o_ms,
             "rows_bytes_ms": (moved + rows_bytes) / HBM_BYTES_PER_S * 1e3}
+
+
+def queued_ms(fn, reps):
+    """Mean device time of fn() over reps calls queued behind a sleep
+    kernel, by CUDA events: the card's time for the calls back to back, not
+    the host's time to issue them (which sets cuda_ms of a small call)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000 * reps)  # ~0.1 ms a call at ~2 GHz
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def decode_bound(moved, out_bytes):
+    """The decode's bound: the larger of its bytes (moved: the stream bytes
+    the index points into, the index, the decoded output) over the memory
+    rate and its integer instructions over their rate."""
+    b_ms = moved / HBM_BYTES_PER_S * 1e3
+    o_ms = DECODE_OPS_PER_BYTE * out_bytes / INT_OPS_PER_S * 1e3
+    return {"bound_ms": max(b_ms, o_ms),
+            "bound_by": "bytes" if b_ms >= o_ms else "operations",
+            "bytes": moved, "bytes_ms": b_ms, "ops_ms": o_ms}
 
 
 def encode_err(k, p):
@@ -424,6 +463,7 @@ def phase_headline(dev):
     before it and read just after."""
     raw = sorted_int32(HEADLINE_MB * MIB)
     res = {}
+    nchunk = -(-HEADLINE_MB * MIB // CHUNK_BYTES)
     for level in (1, 2):
         reset_counts()
         t0 = time.perf_counter()
@@ -443,20 +483,59 @@ def phase_headline(dev):
             "launches": read_counts(),
         }
         r = res[level]
-        check(r["launches"]["encode_blocks"] and r["launches"]["decode_rows"],
-              f"level {level}: a kernel did not run: {r['launches']}")
+        check(r["launches"]["encode_blocks"]
+              and r["launches"]["decode_rows"] == nchunk,
+              f"level {level}: a kernel did not run, or the decompress did "
+              f"not make one K2 launch a {CHUNK_BYTES // MIB} MiB batch: "
+              f"{r['launches']}")
         log(f"headline {HEADLINE_MB} MiB sorted int32 level {level}: ratio "
             f"{r['ratio']:.4f}, compress {r['compress_s']:.3f} s = "
             f"{r['compress_gbps']:.4f} GB/s, decompress {r['decompress_s']:.3f}"
             f" s = {r['decompress_gbps']:.4f} GB/s, launches {r['launches']}")
+        # the split: a second decompress with each batch's steps timed
+        eng.timing = []
+        t0 = time.perf_counter()
+        back = stt.decompress(frame, 4, device=dev)
+        t1 = time.perf_counter()
+        chunks, eng.timing = eng.timing, None
+        check(np.array_equal(back, raw) and len(chunks) == nchunk,
+              f"headline level {level}: the timed decompress")
+        del back
+        r["split"] = decompress_split(chunks, t1 - t0)
+        log(f"  split of a second decompress ({len(chunks)} batches), ms: "
+            + ", ".join(f"{k} {v:.2f}" for k, v in r["split"].items()
+                        if not isinstance(v, list)))
     return raw, res
 
 
+def decompress_split(chunks, total_s):
+    """Sums over the batches of a timed decompress (engine.timing): the
+    host pass on its thread (prep_ms: unpack_ms + parse_ms) and the part of
+    it the decode waited for (wait_ms), so hid behind the batch before
+    (hidden_prep_ms); the copies and K2 by CUDA events; the copy into the
+    output on its threads (out_ms) and the part of it the next batch waited
+    for (out_wait_ms), so hid (hidden_out_ms); each batch's too."""
+    keys = ("unpack_ms", "parse_ms", "wait_ms", "h2d_ms", "k2_ms", "d2h_ms",
+            "out_wait_ms", "out_ms")
+    split = {k: sum(c["times"].get(k, 0.0) for c in chunks) for k in keys}
+    split["prep_ms"] = split["unpack_ms"] + split["parse_ms"]
+    split["hidden_prep_ms"] = split["prep_ms"] - split["wait_ms"]
+    split["hidden_out_ms"] = split["out_ms"] - split["out_wait_ms"]
+    split["total_ms"] = total_s * 1e3
+    split["rest_ms"] = split["total_ms"] - sum(
+        split[k] for k in ("wait_ms", "h2d_ms", "k2_ms", "d2h_ms",
+                           "out_wait_ms"))
+    split["per_batch"] = [{"superblocks": c["superblocks"], **c["times"]}
+                          for c in chunks]
+    return split
+
+
 def phase_timing(dev, raw, frame1, frame2):
-    """Each kernel against its plain version, and their times and transfer
-    times, at the shapes the main path gives them: one CHUNK_BYTES call of
-    128 KiB superblocks (encode, level-1 decode) and one superblock (level-2
-    decode)."""
+    """K1 and K2 against their plain versions at the shapes the main path
+    gives them: one CHUNK_BYTES call of 128 KiB superblocks (encode, level-1
+    and level-2 decode) and one superblock; K1 timed there with its
+    transfers, the plain K2 and the native parse of a batch on one thread
+    (phase_decode_times times K2)."""
     sb = fr.super_block_size(1024)
     per_call = CHUNK_BYTES // sb
     chunk = raw[: per_call * sb]
@@ -499,27 +578,18 @@ def phase_timing(dev, raw, frame1, frame2):
     err["decode_rows"] = decode_err(decode_kernel.decode_rows(*args, 4, nb),
                                     decode_kernel.decode_rows_plain(*args, 4,
                                                                     nb))
-    # level 2 decodes one superblock per launch
-    for s in block_streams(frame2, 4)[1][:4]:
-        one = [torch.from_numpy(a).to(dev)
-               for a in parsed_index([s], 4, sbs)[:3]]
+    # a level-2 batch (the BLOCK_ZSTD residuals), and one superblock alone
+    s2 = block_streams(frame2, 4)[1]
+    for batch in (s2[:per_call], s2[:1], streams[:1]):
+        a2 = [torch.from_numpy(a).to(dev)
+              for a in parsed_index(batch, 4, sbs)[:3]]
         err["decode_rows"] = max(err["decode_rows"], decode_err(
-            decode_kernel.decode_rows(*one, 4, nb),
-            decode_kernel.decode_rows_plain(*one, 4, nb)))
+            decode_kernel.decode_rows(*a2, 4, nb),
+            decode_kernel.decode_rows_plain(*a2, 4, nb)))
     check(err["decode_rows"] == 0, "decode at the main path's shapes")
-    one_ms = cuda_ms(lambda: decode_kernel.decode_rows(*one, 4, nb), 20)
-    k_ms = cuda_ms(lambda: decode_kernel.decode_rows(*args, 4, nb), 10)
     p_ms = cuda_ms(lambda: decode_kernel.decode_rows_plain(*args, 4, nb), 2)
-    moved = (int(vlens.sum()) + po.nbytes + rt.nbytes + len(streams) * sbs)
-    h2d = cuda_ms(lambda: [torch.from_numpy(a).to(dev) for a in (vb, po, rt)],
-                  5)
-    dec = decode_kernel.decode_rows(*args, 4, nb)
-    d2h = cuda_ms(lambda: dec.cpu(), 5)
-    out["decode_rows"] = {"ms": k_ms, "plain_ms": p_ms,
-                          "bound_ms": moved / HBM_BYTES_PER_S * 1e3,
-                          "bytes": moved, "parse_ms": parse_s * 1e3,
-                          "one_superblock_ms": one_ms,
-                          "h2d_ms": h2d, "d2h_ms": d2h}
+    out["decode_rows"] = {"plain_ms": p_ms,
+                          "parse_one_thread_ms": parse_s * 1e3}
     for name, t in out.items():
         log(f"{name} at {len(chunk) // MIB} MiB: " + ", ".join(
             f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
@@ -544,10 +614,11 @@ def phase_device(dev, raw, frame1):
     """The device-resident paths on the headline data, each with the launch
     counts set to 0 just before it and read just after: roundtrip_device,
     DeviceCompressedArray and compress_frame_device. K1b and K2b are held
-    against their plain versions, and timed, on the inputs of the calls
-    these paths make: all 4096 slabs in one call ('jb' on K1b's records,
-    'bj' on the rows deserialize adopts from the level-1 headline frame);
-    the device frame against the plain version's records."""
+    against their plain versions on the inputs of the calls these paths
+    make: all 4096 slabs in one call ('jb' on K1b's records, 'bj' on the
+    rows deserialize adopts from the level-1 headline frame); K1b and the
+    plain versions are timed there (phase_decode_times times K2b); the
+    device frame against the plain version's records."""
     sb = fr.super_block_size(1024)
     n_sb = len(raw) // sb
     nb = sb // 1024
@@ -595,15 +666,10 @@ def phase_device(dev, raw, frame1):
     check(err["decode_rows_derive"] == 0, "K2b 'jb' at the round trip's "
           "shape")
     del dec
-    # the records the index points into, the index, the decoded bytes
-    moved = rec_bytes + k[4].numel() * 4 + x.numel()
     times["decode_rows_derive"] = {
-        "ms": cuda_ms(lambda: decode_kernel.decode_rows_derive(
-            k[0], k[4], 4, nb, "jb"), 3),
         "plain_ms": cuda_ms(lambda: in_chunks(
             decode_kernel.decode_rows_derive_plain, (k[0], k[4]), 4, nb,
-            "jb"), 1),
-        "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bytes": moved}
+            "jb"), 1)}
     del k
 
     a = raw.view("<u4")
@@ -652,10 +718,6 @@ def phase_device(dev, raw, frame1):
         in_chunks(decode_kernel.decode_rows_derive_plain, (vb, pob), 4, nb,
                   "bj")))
     check(err["decode_rows_derive"] == 0, "K2b 'bj' at deserialize's shape")
-    times["decode_rows_derive"].update(
-        bj_ms=cuda_ms(lambda: decode_kernel.decode_rows_derive(
-            vb, pob, 4, nb, "bj"), 3),
-        bj_bytes=int(adopted._totals.sum()) + pob.numel() * 4 + x.numel())
     del arr, adopted, vb, pob
 
     reset_counts()
@@ -709,6 +771,95 @@ def phase_device(dev, raw, frame1):
                         else f"{k} {v}" for k, v in t.items()))
     log(f"device-path kernels == plain versions at their paths' shapes: {err}")
     return res, times, err
+
+
+def load_old(src):
+    """ops.decode_kernel of the package in another checkout (the parent
+    commit's: the old design), loaded under the name old_stenos_tpu_torch
+    with its own build directory."""
+    pkg = os.path.join(os.path.abspath(src), "stenos_tpu_torch")
+    spec = importlib.util.spec_from_file_location(
+        "old_stenos_tpu_torch", os.path.join(pkg, "__init__.py"),
+        submodule_search_locations=[pkg])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    return importlib.import_module("old_stenos_tpu_torch.ops.decode_kernel")
+
+
+def phase_decode_times(dev, raw, frame1, old=None):
+    """K2 and K2b timed at the shapes their paths give them, each beside its
+    bound: K2 on a 64 MiB batch of the level-1 headline frame and on one
+    superblock; K2b on the 512 MiB round trip's records ('jb'), on the rows
+    deserialize adopts from the level-1 frame ('bj'), and on one slab of
+    each (bpp 4, nb 32) and of a low-cardinality bpp-1 container (nb 128).
+    Each new call is held against the plain version, or at 512 MiB against
+    the earlier phases' comparison of the same inputs. With old (load_old),
+    the old design on the same inputs, in turns (old, new, new, old), and
+    its outputs must equal the new ones. Times are queued_ms (the card's),
+    and cuda_ms beside them (*_called_ms: as a caller sees a call)."""
+    sb = fr.super_block_size(1024)
+    nb = sb // 1024
+    n_sb = len(raw) // sb
+    per_call = CHUNK_BYTES // sb
+    streams = block_streams(frame1, 4)[1]
+    cases = {}
+    for name, batch in (("k2_64mib", streams[:per_call]),
+                        ("k2_one_superblock", streams[:1])):
+        vb, po, rt, vlens = parsed_index(batch, 4, sb)
+        a = [torch.from_numpy(v).to(dev) for v in (vb, po, rt)]
+        cases[name] = ("decode_rows", (*a, 4, nb),
+                       int(vlens.sum()) + po.nbytes + rt.nbytes,
+                       len(batch) * sb)
+    x = torch.from_numpy(raw.copy()).to(dev).view(n_sb, sb)
+    rows, totals, _, _, po = encode_kernel.encode_superblocks_index(
+        x, 4, 2, record_bound(nb, 4))
+    del x
+    adopted = stt.DeviceCompressedArray.deserialize(frame1, "<u4", device=dev)
+    lc = torch.from_numpy(low_card(np.random.default_rng(9), 32768)).to(
+        dev).view(1, -1)
+    rows1, tot1, _, _, po1 = encode_kernel.encode_superblocks_index(
+        lc, 1, 2, record_bound(128, 1))
+    for name, r, t, p, bpp, order in (
+            ("k2b_jb_512mib", rows, totals, po, 4, "jb"),
+            ("k2b_bj_512mib", adopted._rows, torch.from_numpy(
+                adopted._totals), adopted._plane_off, 4, "bj"),
+            ("k2b_one_slab_bpp4", rows[7:8], totals[7:8], po[7:8], 4, "jb"),
+            ("k2b_one_slab_bpp1", rows1, tot1, po1, 1, "jb")):
+        nbk = p.shape[1] // bpp
+        cases[name] = ("decode_rows_derive", (r, p, bpp, nbk, order),
+                       int(t.sum()) + p.numel() * 4,
+                       r.shape[0] * nbk * 256 * bpp)
+    res = {}
+    for name, (fn, args, moved, out_bytes) in cases.items():
+        new = getattr(decode_kernel, fn)
+        got = new(*args)
+        if got.numel() <= CHUNK_BYTES:
+            check(torch.equal(got, getattr(decode_kernel, fn + "_plain")(
+                *args)), f"{name}: the kernel differs from its plain version")
+        reps = 5 if got.numel() > CHUNK_BYTES else 20
+        r = {"new_ms": [], "new_called_ms": []}
+        turns = ("new",)
+        if old is not None:
+            check(torch.equal(got, getattr(old, fn)(*args)),
+                  f"{name}: the new kernel differs from the old design")
+            r.update(old_ms=[], old_called_ms=[])
+            turns = ("old", "new", "new", "old")
+        for who in turns:
+            f = getattr(old if who == "old" else decode_kernel, fn)
+            r[f"{who}_ms"].append(queued_ms(lambda: f(*args), reps))
+            r[f"{who}_called_ms"].append(cuda_ms(lambda: f(*args), reps))
+        del got
+        r["ms"] = sum(r["new_ms"]) / len(r["new_ms"])
+        if old is not None:
+            r["old_mean_ms"] = sum(r["old_ms"]) / 2
+        res[name] = {**r, **decode_bound(moved + out_bytes, out_bytes),
+                     "out_bytes": out_bytes}
+        log(f"{name}: " + ", ".join(
+            f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in res[name].items()))
+    del rows, totals, po, adopted, rows1
+    return res
 
 
 def timed(fn):
@@ -1325,6 +1476,8 @@ def phase_zstd(dev):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="chiprun_out/chip_smoke.json")
+    ap.add_argument("--old-src", help="a checkout of an earlier commit: its "
+                    "decode kernels are timed beside these, in turns")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1346,6 +1499,16 @@ def main():
     err["encode_blocks"] = max(err["encode_blocks"],
                                err_dev.pop("encode_blocks"))
     err.update(err_dev)
+    old = load_old(args.old_src) if args.old_src else None
+    dtimes = phase_decode_times(dev, raw, res[1]["frame"], old)
+    log(f"  [{time.perf_counter() - t0:.1f} s]")
+    for name, main_case in (("decode_rows", "k2_64mib"),
+                            ("decode_rows_derive", "k2b_jb_512mib")):
+        times[name].update(
+            {k: dtimes[main_case][k] for k in ("ms", "bound_ms", "bound_by",
+                                              "bytes")},
+            shapes={k: v for k, v in dtimes.items()
+                    if k.startswith("k2b_" if "derive" in name else "k2_")})
     eres, times_ent, err_ent = phase_entropy(dev, raw)
     log(f"  [{time.perf_counter() - t0:.1f} s]")
     times.update(times_ent)

@@ -8,12 +8,13 @@ engine supplies the block streams and decodes them:
           encode_blocks kernel) over 64 MiB rounds of full superblocks, then
           per superblock the host LZ patch-up (_patch_lz) and the abort and
           budget checks (finish_block_stream).
-  decode  decompress_frame_batched -> native parse_rows_batch over 64 MiB
-          chunks -> ops.decode_kernel.decode_rows (the decode_rows kernel);
-          frames that are not all method BLOCK decode their BLOCK
-          superblocks one by one through decode_block_stream, which launches
-          the same kernel (their zstd superblocks go to
-          entropy.device_decode, 64 MiB a call: frame.decompress).
+  decode  frame.decompress gathers every full-size METHOD_BLOCK and
+          METHOD_BLOCK_ZSTD superblock 64 MiB at a time: prepare_blocks
+          (host libzstd on the residuals, the native parse_rows_ptrs) runs
+          on a thread while the batch before it goes through decode_blocks:
+          pinned buffers, non_blocking copies ordered by CUDA events, one
+          launch of ops.decode_kernel.decode_rows (the decode_rows kernel).
+          Zstd superblocks go to entropy.device_decode, 64 MiB a call.
 
 and two device-resident paths with no host byte traffic:
 
@@ -30,13 +31,16 @@ launch, and a native runtime that does not build all raise: nothing here
 falls back to a slower tier.
 """
 
+import os
+import time
+
 import numpy as np
 import torch
 
 from .codec.encode_np import encode_partial
 from .codec.lz_np import fresh_table, lz_compress_block
 from .constants import (BLOCK_LZ, BLOCK_PARTIAL, ERROR_DST_OVERFLOW,
-                        ERROR_INVALID_INPUT)
+                        ERROR_INVALID_INPUT, MAX_BLOCK_BYTES)
 from .ops.decode_kernel import decode_rows, decode_rows_derive
 from .ops.encode_kernel import (encode_superblocks, encode_superblocks_frame,
                                 encode_superblocks_index, record_bound)
@@ -194,79 +198,105 @@ class TorchEngine:
         pieces.append(bytes(stream[pos:]))
         return b"".join(pieces)
 
-    def decode_block_stream(self, payload, bpp, nbytes):
-        """Decode one superblock's block stream: native row parse, then the
-        decode kernel over its blocks; the partial tail comes decoded from
-        the parser. Returns uint8 array or a negative error."""
-        from .native import load
+    def decode_blocks(self, prep, bpp: int, sb: int, host):
+        """Decode a prepared batch (prepare_blocks) with one launch of the
+        decode kernel: on a CUDA device the parse output goes up by
+        non_blocking copies from its pinned buffers and the decoded bytes
+        come back into host's pinned buffer "decoded", CUDA events ordering
+        the copies against the kernel; the host waits on the last event
+        only. Returns the n_ok * sb decoded bytes as a numpy array (a view
+        of host's buffer until the next batch)."""
+        nb = sb // (256 * bpp)
+        args = prep["args"]
+        if self.device.type != "cuda":
+            return decode_rows(*args, bpp, nb).reshape(-1).numpy()
+        ev = [torch.cuda.Event(enable_timing=timing is not None)
+              for _ in range(4)]
+        ev[0].record()
+        dev = [a.to(self.device, non_blocking=True) for a in args]
+        ev[1].record()
+        dec = decode_rows(*dev, bpp, nb)
+        ev[2].record()
+        out = host.get("decoded", dec.numel())
+        out.copy_(dec.view(-1), non_blocking=True)
+        ev[3].record()
+        ev[3].synchronize()
+        if timing is not None:
+            prep["times"].update(h2d_ms=ev[0].elapsed_time(ev[1]),
+                                 k2_ms=ev[1].elapsed_time(ev[2]),
+                                 d2h_ms=ev[2].elapsed_time(ev[3]))
+        return out.numpy()
 
-        native = load()
-        payload = bytes(memoryview(np.asarray(payload)))
-        block_size = 256 * bpp
-        nb = 1 if nbytes == block_size else nbytes // block_size
-        if nb == 0:  # only a partial tail: no 256-element block to decode
-            return native.block_decode(payload, bpp, nbytes)
-        parsed = native.parse_rows(payload, bpp, nbytes)
-        if isinstance(parsed, int):
-            return parsed
-        vbuf, plane_off, row_rel, row_hdr, row_min, tail, _ = parsed
-        rowtab = (row_rel | (row_hdr.astype(np.int32) << 10)
-                  | (row_min.astype(np.int32) << 14)).T
-        out = self._decode(vbuf[None], plane_off[None], rowtab[None], bpp, nb)
-        out = out.reshape(-1)
-        if len(tail):
-            out = np.concatenate([out, tail])
-        return out[:nbytes]
 
-    def _decode(self, vbufs, plane_off, rowtab, bpp, nb) -> np.ndarray:
-        dev = self.device
-        out = decode_rows(_to_device(vbufs, dev), _to_device(plane_off, dev),
-                          _to_device(rowtab, dev), bpp, nb)
-        return out.cpu().numpy()
+# per-batch times of the block decode (chip_smoke.py reads them), appended
+# to when this is a list: the host pass on its thread (unpack_ms, parse_ms),
+# how long the decode waited for it (wait_ms), on a CUDA device h2d_ms,
+# k2_ms and d2h_ms by CUDA events, how long it waited for the batch
+# before's copy into the output (out_wait_ms) and that copy (out_ms)
+timing = None
+
+# threads of the host pass (libzstd, the parse): native, the GIL released
+HOST_THREADS = min(8, os.cpu_count() or 1)
 
 
-def decompress_frame_batched(frame: bytes, bpp: int, engine: TorchEngine):
-    """Decode a whole frame when every superblock is method BLOCK with the
-    same decoded size (the level-1 typed-array path): the native parser
-    builds the row index of CHUNK_BYTES of superblocks at a time and one
-    decode kernel launch decodes each chunk.
+def _up16(n: int) -> int:
+    return (n + 15) // 16 * 16
 
-    Returns the decoded numpy array, or None when the frame does not have
-    that shape (the caller then decodes per superblock). Raises
-    StenosError(ERROR_INVALID_INPUT) when the parser rejects a record."""
-    from .frame import StenosError, get_info
+
+def prepare_blocks(frame: np.ndarray, items, bpp: int, sb: int, bufs):
+    """Host pass of one batch of full-size METHOD_BLOCK / METHOD_BLOCK_ZSTD
+    superblocks of a frame (uint8 array), in native code on HOST_THREADS
+    threads: host libzstd unpacks each residual into its declared content
+    size (native.zstd_unpack), then the parser (native.parse_rows_ptrs)
+    builds the row index of every block stream, where it lies, into bufs'
+    buffers (pinned on a CUDA device). items: (code, pos, csize, written),
+    the payload at frame[pos : pos + csize]. Returns a dict: n_ok, the
+    superblocks before the first one that does not unpack or parse (all of
+    them when every one does), the kernel's args (vbufs, plane_off, rowtab)
+    over those, and times."""
+    from .constants import METHOD_BLOCK
     from .native import load
 
     native = load()
-    frame = bytes(frame)
-    dsize_total, sb, pos = get_info(frame, bpp)
-    block_size = 256 * bpp
-    if dsize_total == 0 or sb % block_size or dsize_total % sb:
-        return None
-    n_sb = dsize_total // sb
-    nb = sb // block_size
-    offs, csizes = [], []
-    p = pos
-    for _ in range(n_sb):
-        if p + 4 > len(frame) or frame[p] != 1:
-            return None
-        csize = int.from_bytes(frame[p + 1 : p + 4], "little")
-        offs.append(p + 4)
-        csizes.append(csize)
-        p += 4 + csize
-    per_call = max(1, CHUNK_BYTES // sb)
-    row_bytes = max(csizes) + 32
-    out = np.empty(dsize_total, np.uint8)
-    for c0 in range(0, n_sb, per_call):
-        c1 = min(c0 + per_call, n_sb)
-        r = native.parse_rows_batch(frame, bpp, sb, offs[c0:c1],
-                                    csizes[c0:c1], row_bytes)
-        if isinstance(r, int):
-            raise StenosError(ERROR_INVALID_INPUT)
-        vbufs, plane_off, rowtab, _ = r
-        out[c0 * sb : c1 * sb] = engine._decode(
-            vbufs, plane_off, rowtab, bpp, nb).reshape(-1)
-    return out
+    t0 = time.perf_counter()
+    spans = np.array([it[1:3] for it in items], np.int64).reshape(-1, 2)
+    srcs = frame.ctypes.data + spans[:, 0]
+    lens = spans[:, 1].copy()
+    zst = np.array([i for i, it in enumerate(items) if it[0] != METHOD_BLOCK],
+                   np.int64)
+    n_ok = len(items)
+    if len(zst):
+        res, starts, n_z = native.zstd_unpack(srcs[zst], lens[zst],
+                                              MAX_BLOCK_BYTES, HOST_THREADS)
+        srcs[zst[:n_z]] = res.ctypes.data + starts[:n_z]
+        lens[zst[:n_z]] = np.diff(starts[: n_z + 1])
+        if n_z < len(zst):
+            n_ok = int(zst[n_z])
+    t1 = time.perf_counter()
+    m = n_ok
+    P = sb // 256
+    srcs, lens = srcs[:m], lens[:m]
+    rb = _up16(int(lens.max()) + 32) if m else 16
+    while m:
+        vb = bufs.get("vbufs", m * rb).view(m, rb)
+        po = bufs.get("plane_off", m * P * 4).view(torch.int32).view(m, P)
+        rt = bufs.get("rowtab", m * 16 * P * 4).view(torch.int32).view(
+            m, 16, P)
+        i, err = native.parse_rows_ptrs(
+            srcs, lens, bpp, sb, rb, vb.numpy(), po.numpy(), rt.numpy(),
+            np.empty(m, np.int64), HOST_THREADS)
+        wide = _up16(int(lens.max()) + sb + 16)
+        if err == ERROR_INVALID_INPUT and rb < wide:
+            rb = wide  # LZ inlining grew a stream past its row: once wider
+            continue
+        n_ok = i
+        break
+    times = {"unpack_ms": (t1 - t0) * 1e3,
+             "parse_ms": (time.perf_counter() - t1) * 1e3}
+    args = None
+    if n_ok:
+        args = (vb[:n_ok], po[:n_ok], rt[:n_ok])
+    return {"n_ok": n_ok, "args": args, "times": times}
 
 
 def roundtrip_device(batch, bpp: int, block_level: int = 2):

@@ -6,7 +6,8 @@ the frame layer, the row parser feeding the decode kernel and the LZ
 estimators all need it, and there is no slower tier to hide behind.
 
 Only the entry points the port's paths call are bound: lz4_guess_size,
-parse_rows, parse_rows_batch and block_decode (the block codec),
+parse_rows_batch, parse_rows_ptrs, zstd_unpack (libzstd through the
+caller's function pointers) and block_decode (the block codec),
 huff_lengths (the device container's entropy stage), and for the zstd
 entropy stage: huff_tree_descs, matchiness, match_parse, encode_block and
 recode_reps_enc (encode); zstd_ctx, zstd_dtables, resolve_reps,
@@ -35,6 +36,11 @@ def _ptr(a):
     return a.ctypes.data_as(_P)
 
 
+def _fn(f):
+    """The address of a ctypes foreign function."""
+    return ctypes.cast(f, _P).value
+
+
 class _Native:
     def __init__(self, cdll):
         self._lib = cdll
@@ -42,12 +48,16 @@ class _Native:
         cdll.stn_lz4_guess_size.argtypes = [ctypes.c_char_p, _SZ, ctypes.c_int]
         cdll.stn_block_decode.restype = ctypes.c_ssize_t
         cdll.stn_block_decode.argtypes = [_P, _SZ, _SZ, _SZ, _P, _P]
-        cdll.stn_parse_rows.restype = ctypes.c_ssize_t
-        cdll.stn_parse_rows.argtypes = [
-            _P, _SZ, _SZ, _SZ, _P, _P, _P, _P, _P, _SZ, _P, _P, _P, _P, _P]
         cdll.stn_parse_rows_batch.restype = ctypes.c_ssize_t
         cdll.stn_parse_rows_batch.argtypes = [
             _P, _SZ, _SZ, _SZ, _SZ, _P, _P, _SZ, _P, _P, _P, _P, _P]
+        cdll.stn_parse_rows_ptrs.restype = ctypes.c_ssize_t
+        cdll.stn_parse_rows_ptrs.argtypes = [
+            _P, _P, _SZ, _SZ, _SZ, _SZ, _P, _P, _P, _P, _I]
+        cdll.stn_zstd_sizes.restype = None
+        cdll.stn_zstd_sizes.argtypes = [_P, _P, _P, _SZ, _P]
+        cdll.stn_zstd_unpack.restype = None
+        cdll.stn_zstd_unpack.argtypes = [_P, _P, _P, _P, _P, _P, _SZ, _I, _P]
         cdll.stn_huff_lengths.restype = None
         cdll.stn_huff_lengths.argtypes = [_P, _SZ, ctypes.c_int32, _P]
         cdll.stn_huff_tree_descs.restype = None
@@ -80,56 +90,6 @@ class _Native:
     def lz4_guess_size(self, data, accel: int) -> int:
         data = bytes(data)
         return self._lib.stn_lz4_guess_size(data, len(data), accel)
-
-    def parse_rows(self, src, bpp: int, nbytes: int):
-        """Row-level decode index for the decode kernel.
-
-        Returns (vbuf, plane_off i32[P], row_rel i32[P,16], row_hdr u8[P,16],
-        row_min u8[P,16], tail_bytes, consumed) or a negative error. vbuf is
-        the VIRTUAL stream: the payload with LZ/COPY blocks replaced inline
-        by decoded shuffled planes; plane_off indexes vbuf, row_rel is
-        relative to each plane's offset. tail_bytes = decoded partial tail.
-        """
-        src = bytes(src)
-        block_size = 256 * bpp
-        nb = 1 if nbytes == block_size else nbytes // block_size
-        P = max(nb * bpp, 1)
-        row_hdr = np.zeros(P * 16, dtype=np.uint8)
-        row_min = np.zeros(P * 16, dtype=np.uint8)
-        row_rel = np.zeros(P * 16, dtype=np.int32)
-        plane_off = np.zeros(P, dtype=np.int32)
-        patch_cap = nbytes + 2 * block_size
-        patch = np.empty(patch_cap, dtype=np.uint8)
-        patch_len = np.zeros(1, dtype=np.int64)
-        tail_info = np.zeros(2, dtype=np.int64)
-        splices = np.zeros((max(nb, 1), 3), dtype=np.int64)
-        n_splices = np.zeros(1, dtype=np.int64)
-        scratch = np.empty(512 * bpp + 16, dtype=np.uint8)
-        r = self._lib.stn_parse_rows(
-            src, len(src), bpp, nbytes, _ptr(row_hdr), _ptr(row_min),
-            _ptr(row_rel), _ptr(plane_off), _ptr(patch), patch_cap,
-            _ptr(patch_len), _ptr(tail_info), _ptr(splices),
-            _ptr(n_splices), _ptr(scratch))
-        if r < 0:
-            return int(r)
-        stream = np.frombuffer(src, np.uint8)
-        nspl = int(n_splices[0])
-        if nspl:
-            pieces = []
-            prev = 0
-            for k in range(nspl):
-                sp, skip, ppos = splices[k]
-                pieces.append(stream[prev:sp])
-                pieces.append(patch[ppos : ppos + block_size])
-                prev = sp + skip
-            pieces.append(stream[prev:])
-            vbuf = np.concatenate(pieces)
-        else:
-            vbuf = stream
-        tail = patch[int(tail_info[0]) : int(tail_info[0]) + int(tail_info[1])] \
-            if tail_info[1] else np.zeros(0, np.uint8)
-        return (vbuf, plane_off, row_rel.reshape(P, 16),
-                row_hdr.reshape(P, 16), row_min.reshape(P, 16), tail, int(r))
 
     def parse_rows_batch(self, frame, bpp: int, sb: int, offs, csizes,
                          row_bytes: int):
@@ -167,6 +127,56 @@ class _Native:
         if r < 0:
             return int(r)
         return vbufs, plane_off, rowtab, vlens
+
+    def parse_rows_ptrs(self, srcs, csizes, bpp: int, sb: int,
+                        row_bytes: int, vbufs, plane_off, rowtab, vlens,
+                        threads: int = 1):
+        """parse_rows_batch's index of full method-BLOCK superblocks whose
+        block streams lie anywhere in host memory, on up to `threads`
+        threads: stream i is csizes[i] bytes at address srcs[i] (int64
+        arrays). Writes row i of the C-contiguous arrays vbufs (n,
+        row_bytes) uint8, plane_off (n, P) and rowtab (n, 16, P) int32 and
+        vlens (n,) int64, as parse_rows_batch returns them. Returns (n, 0),
+        or (i, error) for the first stream i that does not parse (rows
+        before it are written)."""
+        srcs = np.ascontiguousarray(srcs, np.int64)
+        csizes = np.ascontiguousarray(csizes, np.int64)
+        r = self._lib.stn_parse_rows_ptrs(
+            _ptr(srcs), _ptr(csizes), len(srcs), bpp, sb, row_bytes,
+            _ptr(vbufs), _ptr(plane_off), _ptr(rowtab), _ptr(vlens), threads)
+        if r == 0:
+            return len(srcs), 0
+        return (-r >> 8) - 1, -(-r & 255)
+
+    def zstd_unpack(self, srcs, lens, cap: int, threads: int):
+        """Host libzstd (the binding of host/zstd.py) over n zstd frames in
+        memory, frame i lens[i] bytes at address srcs[i] (int64 arrays),
+        each into a buffer of its declared content size, on up to `threads`
+        threads. Returns (buf, starts, n_ok): frame i's bytes are
+        buf[starts[i] : starts[i + 1]] for i < n_ok; frame n_ok, when there
+        is one, declares no size or more than cap, or does not decode."""
+        from ..host import zstd as zstd_host
+
+        zl = zstd_host._zstd()
+        srcs = np.ascontiguousarray(srcs, np.int64)
+        lens = np.ascontiguousarray(lens, np.int64)
+        n = len(srcs)
+        sizes = np.empty(n, np.uint64)
+        self._lib.stn_zstd_sizes(_fn(zl.ZSTD_getFrameContentSize),
+                                 _ptr(srcs), _ptr(lens), n, _ptr(sizes))
+        bad = np.flatnonzero(sizes > cap)
+        n_ok = int(bad[0]) if len(bad) else n
+        starts = np.zeros(n_ok + 1, np.int64)
+        np.cumsum(sizes[:n_ok].astype(np.int64), out=starts[1:])
+        buf = np.empty(max(int(starts[-1]), 1), np.uint8)
+        dsts = buf.ctypes.data + starts[:-1]
+        caps = np.diff(starts)
+        got = np.empty(n_ok, np.int64)
+        self._lib.stn_zstd_unpack(
+            _fn(zl.ZSTD_decompress), _fn(zl.ZSTD_isError), _ptr(srcs),
+            _ptr(lens), _ptr(dsts), _ptr(caps), n_ok, threads, _ptr(got))
+        bad = np.flatnonzero(got != caps)
+        return buf, starts, int(bad[0]) if len(bad) else n_ok
 
     def block_decode(self, src, bpp: int, nbytes: int):
         """Decode a block stream -> numpy uint8 array or negative error."""

@@ -1032,55 +1032,6 @@ EXPORT void stn_huff_tree_descs(const uint8_t* lengths, size_t n_blocks,
 
 namespace {
 
-// Parse one NORMAL/NORMAL_RLE plane emitting row records; returns consumed.
-ptrdiff_t parse_plane_rows(const uint8_t* src, ptrdiff_t avail, bool rle_mins,
-                           int32_t base, uint8_t* rh, uint8_t* rm,
-                           int32_t* ro) {
-    if (avail < 8) return -1;
-    uint8_t headers[16];
-    for (int i = 0; i < 8; ++i) {
-        headers[2 * i] = src[i] & 15;
-        headers[2 * i + 1] = src[i] >> 4;
-    }
-    ptrdiff_t pos = 8;
-    uint8_t mins[16] = {0};
-    if (rle_mins) {
-        ptrdiff_t r = rle_row(src + pos, avail - pos, mins, 0);
-        if (r < 0) return -1;
-        pos += r;
-    } else {
-        for (int i = 0; i < 16; ++i) {
-            const uint8_t h = headers[i];
-            if (h != 6 && h != 7 && h != 15) {
-                if (pos >= avail) return -1;
-                mins[i] = src[pos++];
-            }
-        }
-    }
-    static const int kSize[16] = {0, 2, 4, 6, 8, 10, 12, -1,
-                                  0, 2, 4, 6, 8, 10, 12, 16};
-    for (int r = 0; r < 16; ++r) {
-        const uint8_t h = headers[r];
-        rh[r] = h;
-        rm[r] = mins[r];
-        ro[r] = base + (int32_t)pos;
-        if (h == 6 || h == 7) {
-            if (pos + 2 > avail) return -1;
-            const uint32_t mask =
-                (uint32_t)src[pos] | ((uint32_t)src[pos + 1] << 8);
-            pos += 2 + __builtin_popcount(~mask & 0xFFFFu);
-        } else {
-            pos += kSize[h];
-        }
-        if (pos > avail) return -1;
-    }
-    return pos;
-}
-
-}  // namespace
-
-namespace {
-
 // Packed-row-record plane parse: rowtab[r * rt_stride] = rel|hdr<<10|min<<14.
 inline ptrdiff_t parse_plane_rows_packed(const uint8_t* src, ptrdiff_t avail,
                                          bool rle_mins, int32_t* rowtab,
@@ -1127,30 +1078,20 @@ inline ptrdiff_t parse_plane_rows_packed(const uint8_t* src, ptrdiff_t avail,
 
 }  // namespace
 
-// Batched full-superblock parse for the Pallas decoder: one call per frame.
-// For each of n_sb method-BLOCK payloads at frame+offs[i] (csizes[i] bytes,
-// all decoding to exactly sb bytes), writes
-//   vbufs    (n_sb, row_bytes)  virtual payload (LZ/COPY blocks replaced
-//                               inline by their decoded shuffled planes)
-//   plane_off(n_sb, P)          virtual plane start offsets
-//   rowtab   (n_sb, 16, P)      packed row records rel | hdr<<10 | min<<14
-// P = sb/256. Returns 0 or a negative error code.
-EXPORT ptrdiff_t stn_parse_rows_batch(
-    const uint8_t* frame, size_t frame_size, size_t bpp, size_t sb,
-    size_t n_sb, const int64_t* offs, const int64_t* csizes,
-    size_t row_bytes, uint8_t* vbufs, int32_t* plane_off, int32_t* rowtab,
-    int64_t* vlens, uint8_t* scratch /* >= 512*bpp */) {
+namespace {
+
+// One full method-BLOCK superblock's row index (see stn_parse_rows_batch):
+// its virtual payload into vb (row_bytes, zeros past it), plane offsets into
+// po (P), row records into rt (16, P); its virtual length into *vlen.
+ptrdiff_t parse_superblock_rows(const uint8_t* src, ptrdiff_t n, size_t bpp,
+                                size_t sb, size_t row_bytes, uint8_t* vb,
+                                int32_t* po, int32_t* rt, int64_t* vlen,
+                                uint8_t* scratch) {
     const size_t hdr_w = (bpp + 1) / 2;
     const size_t block_size = 256 * bpp;
     const size_t nb = sb / block_size;
     const size_t P = nb * bpp;
-    for (size_t i = 0; i < n_sb; ++i) {
-        const uint8_t* src = frame + offs[i];
-        const ptrdiff_t n = (ptrdiff_t)csizes[i];
-        if (offs[i] + csizes[i] > (int64_t)frame_size) return ERR_SRC;
-        uint8_t* vb = vbufs + i * row_bytes;
-        int32_t* po = plane_off + i * P;
-        int32_t* rt = rowtab + i * 16 * P;
+    {
         ptrdiff_t pos = 0;    // read position in src
         size_t vpos = 0;      // write position in vb
         ptrdiff_t seg = 0;    // start of pending verbatim segment
@@ -1237,156 +1178,105 @@ EXPORT ptrdiff_t stn_parse_rows_batch(
         // virtual length can EXCEED csize when LZ/COPY blocks (markers
         // 252/253) were inlined as full 256*bpp planes; consumers must use
         // this, not csize, to bound the virtual stream
-        vlens[i] = (int64_t)vpos;
+        *vlen = (int64_t)vpos;
     }
     return 0;
 }
 
-EXPORT ptrdiff_t stn_parse_rows(const uint8_t* src, size_t size, size_t bpp,
-                                size_t nbytes, uint8_t* row_hdr,
-                                uint8_t* row_min, int32_t* row_rel,
-                                int32_t* plane_off, uint8_t* patch,
-                                size_t patch_cap, int64_t* patch_len,
-                                int64_t* tail_info, int64_t* splices,
-                                int64_t* n_splices,
-                                uint8_t* scratch /* >= 512*bpp */) {
-    // Offsets are in VIRTUAL coordinates: the stream with every LZ/COPY
-    // block replaced inline by its decoded shuffled planes (256*bpp bytes).
-    // splices: triples (stream_pos, stream_skip, patch_pos) for the host to
-    // materialize the virtual buffer (rare; zero for plain streams).
-    const ptrdiff_t n = (ptrdiff_t)size;
-    const size_t hdr_w = (bpp + 1) / 2;
-    const size_t block_size = 256 * bpp;
-    const size_t nb = nbytes == block_size ? 1 : nbytes / block_size;
-    ptrdiff_t pos = 0;
-    int64_t vdelta = 0;  // virtual - real offset
-    size_t patch_w = 0;
-    int64_t nspl = 0;
-    tail_info[0] = -1;
-    tail_info[1] = 0;
+}  // namespace
 
-    for (size_t b = 0; b < nb; ++b) {
-        if (pos >= n) return ERR_SRC;
-        const uint8_t marker = src[pos];
-        uint8_t* rh = row_hdr + b * bpp * 16;
-        uint8_t* rm = row_min + b * bpp * 16;
-        int32_t* rr = row_rel + b * bpp * 16;
-        int32_t* po = plane_off + b * bpp;
-        if (marker == 252 || marker == 253) {  // COPY / LZ -> inline patch
-            const ptrdiff_t block_start = pos;
-            ++pos;
-            uint8_t* dec = scratch;
-            if (marker == 252) {
-                if (pos + (ptrdiff_t)block_size > n) return ERR_SRC;
-                std::memcpy(dec, src + pos, block_size);
-                pos += block_size;
-            } else {
-                ptrdiff_t c = lz_block(src + pos, n - pos, bpp, dec);
-                if (c < 0) return ERR_INPUT;
-                pos += c;
-            }
-            if (patch_w + block_size > patch_cap) return ERR_INPUT;
-            for (size_t p = 0; p < bpp; ++p) {
-                uint8_t* dst = patch + patch_w + p * 256;
-                for (size_t e = 0; e < 256; ++e) dst[e] = dec[e * bpp + p];
-                po[p] = (int32_t)(block_start + vdelta + (int64_t)p * 256);
-                for (int r = 0; r < 16; ++r) {
-                    rh[p * 16 + r] = 15;
-                    rm[p * 16 + r] = 0;
-                    rr[p * 16 + r] = (int32_t)(r * 16);
-                }
-            }
-            splices[nspl * 3 + 0] = block_start;
-            splices[nspl * 3 + 1] = pos - block_start;
-            splices[nspl * 3 + 2] = (int64_t)patch_w;
-            ++nspl;
-            patch_w += block_size;
-            vdelta += (int64_t)block_size - (pos - block_start);
-            continue;
-        }
-        if (pos + (ptrdiff_t)hdr_w >= n) return ERR_SRC;
-        const uint8_t* codes = src + pos;
-        pos += hdr_w;
-        for (size_t p = 0; p < bpp; ++p) {
-            const int code = (codes[p >> 1] >> (4 * (p & 1))) & 15;
-            uint8_t* prh = rh + p * 16;
-            uint8_t* prm = rm + p * 16;
-            int32_t* prr = rr + p * 16;
-            po[p] = (int32_t)(pos + vdelta);
-            if (code == 0) {  // ALL_SAME -> 16 memset rows
-                if (pos >= n) return ERR_SRC;
-                const uint8_t v = src[pos++];
-                for (int r = 0; r < 16; ++r) {
-                    prh[r] = 0;
-                    prm[r] = v;
-                    prr[r] = 1;  // zero-size rows past the value byte
-                }
-            } else if (code == 1) {  // ALL_RAW -> 16 raw rows
-                if (pos + 256 > n) return ERR_SRC;
-                for (int r = 0; r < 16; ++r) {
-                    prh[r] = 15;
-                    prm[r] = 0;
-                    prr[r] = (int32_t)(r * 16);
-                }
-                pos += 256;
-            } else if (code == 2 || code == 3) {
-                ptrdiff_t c = parse_plane_rows(src + pos, n - pos, code == 3,
-                                               0, prh, prm, prr);
-                if (c < 0) return ERR_SRC;
-                pos += c;
-            } else {
-                return ERR_INPUT;
-            }
-        }
+// Batched full-superblock parse for the decode kernel: one call per frame.
+// For each of n_sb method-BLOCK payloads at frame+offs[i] (csizes[i] bytes,
+// all decoding to exactly sb bytes), writes
+//   vbufs    (n_sb, row_bytes)  virtual payload (LZ/COPY blocks replaced
+//                               inline by their decoded shuffled planes)
+//   plane_off(n_sb, P)          virtual plane start offsets
+//   rowtab   (n_sb, 16, P)      packed row records rel | hdr<<10 | min<<14
+// P = sb/256. Returns 0 or a negative error code.
+EXPORT ptrdiff_t stn_parse_rows_batch(
+    const uint8_t* frame, size_t frame_size, size_t bpp, size_t sb,
+    size_t n_sb, const int64_t* offs, const int64_t* csizes,
+    size_t row_bytes, uint8_t* vbufs, int32_t* plane_off, int32_t* rowtab,
+    int64_t* vlens, uint8_t* scratch /* >= 512*bpp */) {
+    const size_t P = sb / 256;
+    for (size_t i = 0; i < n_sb; ++i) {
+        if (offs[i] + csizes[i] > (int64_t)frame_size) return ERR_SRC;
+        const ptrdiff_t r = parse_superblock_rows(
+            frame + offs[i], (ptrdiff_t)csizes[i], bpp, sb, row_bytes,
+            vbufs + i * row_bytes, plane_off + i * P, rowtab + i * 16 * P,
+            vlens + i, scratch);
+        if (r < 0) return r;
     }
-
-    const size_t rem = nbytes - nb * block_size;
-    if (rem) {  // partial tail: host-decoded into the patch area
-        if (pos == n) return ERR_SRC;
-        if (src[pos++] != 254) return ERR_INPUT;
-        uint8_t* out = scratch;
-        const size_t line_size = 16 * bpp;
-        const size_t lines = rem / line_size;
-        uint8_t* planes = scratch + 256 * bpp;
-        if (lines) {
-            if (pos + (ptrdiff_t)hdr_w >= n) return ERR_SRC;
-            const uint8_t* codes = src + pos;
-            pos += hdr_w;
-            for (size_t p = 0; p < bpp; ++p) {
-                const int code = (codes[p >> 1] >> (4 * (p & 1))) & 15;
-                uint8_t* plane = planes + p * 256;
-                if (code == 0) {
-                    if (pos >= n) return ERR_SRC;
-                    std::memset(plane, src[pos++], 16 * lines);
-                } else if (code == 2) {
-                    ptrdiff_t c = decode_plane(src + pos, n - pos, (int)lines,
-                                               false, plane);
-                    if (c < 0) return ERR_SRC;
-                    pos += c;
-                } else {
-                    return ERR_INPUT;
-                }
-            }
-            for (size_t p = 0; p < bpp; ++p)
-                for (size_t e = 0; e < 16 * lines; ++e)
-                    out[e * bpp + p] = planes[p * 256 + e];
-        }
-        const size_t tail = rem - lines * line_size;
-        if (tail) {
-            if (pos + (ptrdiff_t)tail > n) return ERR_SRC;
-            std::memcpy(out + lines * line_size, src + pos, tail);
-            pos += tail;
-        }
-        if (patch_w + rem > patch_cap) return ERR_INPUT;
-        std::memcpy(patch + patch_w, out, rem);
-        tail_info[0] = (int64_t)patch_w;
-        tail_info[1] = (int64_t)rem;
-        patch_w += rem;
-    }
-    patch_len[0] = (int64_t)patch_w;
-    n_splices[0] = nspl;
-    return pos;
+    return 0;
 }
+
+namespace {
+
+// f(i) for i in [0, n), contiguous ranges on up to `threads` threads
+template <class F>
+void parallel_ranges(size_t n, int threads, F&& f) {
+    const size_t t = std::max<size_t>(1, std::min<size_t>(n, threads));
+    const size_t per = (n + t - 1) / t;
+    std::vector<std::thread> pool;
+    for (size_t k = 1; k < t; ++k)
+        pool.emplace_back([&, k] {
+            for (size_t i = k * per; i < std::min(n, (k + 1) * per); ++i) f(i);
+        });
+    for (size_t i = 0; i < std::min(n, per); ++i) f(i);
+    for (auto& th : pool) th.join();
+}
+
+}  // namespace
+
+// The same over payloads anywhere in memory, on up to `threads` threads:
+// payload i is csizes[i] bytes at address srcs[i] (a frame's METHOD_BLOCK
+// payload, or the unpacked residual of a METHOD_BLOCK_ZSTD one). Returns 0,
+// or -(i + 1) << 8 | -error for the first payload i that fails.
+EXPORT ptrdiff_t stn_parse_rows_ptrs(
+    const int64_t* srcs, const int64_t* csizes, size_t n_sb, size_t bpp,
+    size_t sb, size_t row_bytes, uint8_t* vbufs, int32_t* plane_off,
+    int32_t* rowtab, int64_t* vlens, int threads) {
+    const size_t P = sb / 256;
+    std::vector<ptrdiff_t> err(n_sb, 0);
+    parallel_ranges(n_sb, threads, [&](size_t i) {
+        thread_local std::vector<uint8_t> scratch;
+        scratch.resize(512 * bpp + 16);
+        err[i] = parse_superblock_rows(
+            (const uint8_t*)(intptr_t)srcs[i], (ptrdiff_t)csizes[i], bpp, sb,
+            row_bytes, vbufs + i * row_bytes, plane_off + i * P,
+            rowtab + i * 16 * P, vlens + i, scratch.data());
+    });
+    for (size_t i = 0; i < n_sb; ++i)
+        if (err[i] < 0) return -(((ptrdiff_t)i + 1) << 8) + err[i];
+    return 0;
+}
+
+// Host libzstd over the residuals of METHOD_BLOCK_ZSTD superblocks, through
+// the caller's function pointers (the port binds libzstd with ctypes; this
+// file does not link it): the declared content size of each frame
+// (ZSTD_getFrameContentSize, as returned), then each frame unpacked into
+// dsts[i] (caps[i] bytes) on up to `threads` threads; got[i] is its size,
+// or -1 when ZSTD_decompress fails.
+EXPORT void stn_zstd_sizes(void* size_fn, const int64_t* srcs,
+                           const int64_t* lens, size_t n, uint64_t* sizes) {
+    auto size = (unsigned long long (*)(const void*, size_t))size_fn;
+    for (size_t i = 0; i < n; ++i)
+        sizes[i] = size((const void*)(intptr_t)srcs[i], (size_t)lens[i]);
+}
+
+EXPORT void stn_zstd_unpack(void* decompress_fn, void* is_error_fn,
+                            const int64_t* srcs, const int64_t* lens,
+                            const int64_t* dsts, const int64_t* caps,
+                            size_t n, int threads, int64_t* got) {
+    auto dec = (size_t (*)(void*, size_t, const void*, size_t))decompress_fn;
+    auto is_error = (unsigned (*)(size_t))is_error_fn;
+    parallel_ranges(n, threads, [&](size_t i) {
+        const size_t r = dec((void*)(intptr_t)dsts[i], (size_t)caps[i],
+                             (const void*)(intptr_t)srcs[i], (size_t)lens[i]);
+        got[i] = is_error(r) ? -1 : (int64_t)r;
+    });
+}
+
 
 // ===================================================================
 // zstd compressed-block decode helpers (clean-room from RFC 8878)

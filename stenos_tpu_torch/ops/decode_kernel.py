@@ -25,6 +25,7 @@ rowtab (derive_rowtab_plain) and calls decode_rows_plain.
 """
 
 import ctypes
+import functools
 
 import torch
 
@@ -39,11 +40,83 @@ launches_derive = 0
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _I = ctypes.c_int
+_GEOMETRY = [_I] * 7  # launch_plan's tile_blocks .. smem
 _SIGNATURES = {
-    "stenos_decode_rows": [_P, _LL, _P, _P, _LL, _I, _I, _P, _P],
-    "stenos_decode_rows_derive": [_P, _LL, _P, _LL, _I, _I, _I, _P, _P],
+    "stenos_decode_rows": [_P, _LL, _P, _P, _LL, _I, _I, *_GEOMETRY, _P, _P],
+    "stenos_decode_rows_derive": [_P, _LL, _P, _LL, _I, _I, _I, *_GEOMETRY,
+                                  _P, _P],
 }
 _WIN = 320  # plane window of the derivation: offset-chain reads end < 298
+
+SMEM_LIMIT = 232448  # shared memory a CTA can use on Hopper
+OUT_MAX = 16384      # a tile's output bytes, at most
+TILE_BYTES = 16384   # a tile's output bytes, aimed at
+TARGET_CTAS = 264    # CTAs a call should have: two an SM on an H100
+PLANE_BYTES = 264    # a plane's stream bytes, staged room for (ALL_RAW: 256)
+
+
+def _up16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def launch_plan(bpp: int, nb: int, n_sb: int = 1) -> dict:
+    """Tiles and CTA width of the decode kernel for n_sb superblocks of nb
+    blocks of bpp bytes per element.
+
+    A tile is tile_blocks whole blocks of one superblock (every plane of
+    them), its output one contiguous span of at most OUT_MAX bytes. The CTA
+    has `slots` half-warps, so a step decodes `slots` planes in (block,
+    plane) order, one lane a row. For each width (16, 8, 4, 2 half-warps)
+    the tile is the one whose last step is fullest, then that gives the
+    most CTAs (up to TARGET_CTAS), then the nearest to TILE_BYTES; the
+    widest CTA that makes TARGET_CTAS CTAs is taken, else the one that makes
+    the most. A block wider than OUT_MAX goes by groups of `group` planes
+    (tile_blocks 0), 16 half-warps. Returns tile_blocks, group, tiles (a
+    superblock), threads, stage (staged stream bytes), out_bytes (the
+    largest tile's output), plane_off_bytes (its plane offsets),
+    rowtab_bytes (K2's row records) and smem, in the kernel's order."""
+    hdr_w = (bpp + 1) // 2
+    blk = 256 * bpp
+    if blk > OUT_MAX:
+        group = OUT_MAX // 256
+        kb, slots, planes = 0, 16, group
+        tiles = nb * -(-bpp // group)
+        stage = _up16(group * PLANE_BYTES + 48)
+    else:
+        def fill(k, s):
+            return k * bpp / (s * -(-k * bpp // s))
+
+        def ctas(k):
+            return n_sb * -(-nb // k)
+
+        best = []
+        for s in (16, 8, 4, 2):
+            k = max(range(1, min(nb, OUT_MAX // blk) + 1),
+                    key=lambda k: (round(fill(k, s), 9),
+                                   min(ctas(k), TARGET_CTAS),
+                                   -abs(k * blk - TILE_BYTES)))
+            best.append((s, k))
+        wide = [c for c in best if ctas(c[1]) >= TARGET_CTAS]
+        slots, kb = wide[0] if wide else max(best, key=lambda c: (ctas(c[1]),
+                                                                   c[0]))
+        group, planes = 0, kb * bpp
+        tiles = -(-nb // kb)
+        stage = _up16(planes * PLANE_BYTES + kb * hdr_w + 48)
+    out = 256 * planes
+    po = 4 * (-(-planes // 4) * 4)
+    rt = 16 * (planes | 1) * 4
+    return {"tile_blocks": kb, "group": group, "tiles": tiles,
+            "threads": 16 * slots, "stage": stage, "out_bytes": out,
+            "plane_off_bytes": po, "rowtab_bytes": rt,
+            "smem": stage + out + po + rt}
+
+
+@functools.lru_cache(maxsize=None)
+def _launch_args(bpp: int, nb: int, n_sb: int, derive: bool):
+    p = launch_plan(bpp, nb, n_sb)
+    smem = p["smem"] - (p["rowtab_bytes"] if derive else 0)
+    return (p["tile_blocks"], p["group"], p["tiles"], p["threads"],
+            p["stage"], p["out_bytes"], smem)
 
 
 def decode_rows_plain(vbufs, plane_off, rowtab, bpp: int, nb: int):
@@ -190,14 +263,17 @@ def decode_rows(vbufs, plane_off, rowtab, bpp: int, nb: int):
             raise ValueError("decode_rows: need contiguous vbufs (n_sb, L) "
                              "uint8, plane_off (n_sb, P) and rowtab "
                              f"(n_sb, 16, P) int32 on one device, P = {P}")
-    lib = _cuda.load("decode_rows", _SIGNATURES)
     global launches
     out = torch.empty((n_sb, nb * 256 * bpp), dtype=torch.uint8,
                       device=vbufs.device)
+    if n_sb == 0:
+        return out
+    lib = _cuda.load("decode_rows", _SIGNATURES)
     stream = torch.cuda.current_stream(vbufs.device).cuda_stream
     _cuda.check(lib.stenos_decode_rows(
         vbufs.data_ptr(), row_bytes, plane_off.data_ptr(), rowtab.data_ptr(),
-        n_sb, nb, bpp, out.data_ptr(), stream), "decode_rows")
+        n_sb, nb, bpp, *_launch_args(bpp, nb, n_sb, False), out.data_ptr(),
+        stream), "decode_rows")
     launches += 1
     return out
 
@@ -225,14 +301,16 @@ def decode_rows_derive(vbufs, plane_off, bpp: int, nb: int,
             raise ValueError("decode_rows_derive: need contiguous vbufs "
                              "(n_sb, L) uint8 and plane_off (n_sb, P) int32 "
                              f"on one device, P = {P}")
-    lib = _cuda.load("decode_rows", _SIGNATURES)
     global launches_derive
     out = torch.empty((n_sb, nb * 256 * bpp), dtype=torch.uint8,
                       device=vbufs.device)
+    if n_sb == 0:
+        return out
+    lib = _cuda.load("decode_rows", _SIGNATURES)
     stream = torch.cuda.current_stream(vbufs.device).cuda_stream
     _cuda.check(lib.stenos_decode_rows_derive(
         vbufs.data_ptr(), row_bytes, plane_off.data_ptr(), n_sb, nb, bpp,
-        int(plane_order == "jb"), out.data_ptr(), stream),
-        "decode_rows_derive")
+        int(plane_order == "jb"), *_launch_args(bpp, nb, n_sb, True),
+        out.data_ptr(), stream), "decode_rows_derive")
     launches_derive += 1
     return out
