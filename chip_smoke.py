@@ -31,7 +31,6 @@ failure ends the run with a non-zero exit code. The last line is
 """
 
 import argparse
-import importlib
 import importlib.util
 import itertools
 import json
@@ -571,7 +570,7 @@ def phase_timing(dev, raw, frame1, frame2):
     sbs, streams = block_streams(frame1, 4)
     streams = streams[:per_call]
     t0 = time.perf_counter()
-    vb, po, rt, vlens = parsed_index(streams, 4, sbs)
+    vb, po, rt, _ = parsed_index(streams, 4, sbs)
     parse_s = time.perf_counter() - t0
     args = [torch.from_numpy(a).to(dev) for a in (vb, po, rt)]
     nb = sbs // 1024

@@ -3,7 +3,7 @@
 // Replaces the TPU kernel stenos_tpu/ops/decode_pallas.py::make_decode_kernel
 // in both its modes:
 //   K2  derive=False (entry decode_slabs_body): the batched row index of the
-//       native parser (stn_parse_rows_batch), per plane a start offset into
+//       native parser (stn_parse_rows_ptrs), per plane a start offset into
 //       the virtual stream, per row a record rel | hdr<<10 | min<<14. Same
 //       function as stenos_tpu/engine_jax.py::_decode_rows_body.
 //   K2b derive=True (entry decode_slabs_derive_body): plane offsets with the
@@ -16,26 +16,29 @@
 // decode_tiles: one CTA a tile, a tile being whole blocks of one superblock,
 // every plane of them (or, for blocks wider than 16 KiB, a group of planes
 // of one block). ops/decode_kernel.py launch_plan picks the tile and the CTA
-// width (2-16 half-warps) from (bpp, nb, n_sb): 8 KiB tiles of 256 threads
+// width (2-16 half-warps) from (bpp, nb, n_sb): 16 KiB tiles of 256 threads
 // at the main path's shapes, one-block tiles of narrower CTAs when a call
-// has too few tiles to spread over the SMs (a one-slab read).
+// has too few tiles to spread over the SMs (a one-slab read). A CTA owns
+// one tile; the 6 CTAs an SM (40 registers a thread) overlap one another's
+// staging, decode and store.
 //   - Staging: a tile's planes are contiguous in stream order (the parser's
 //     and K1b's virtual streams: a block's header, then its planes, LZ/COPY
 //     blocks inlined as raw planes), so the CTA copies the span from its
 //     first plane to the next tile's first plane (plus 32 bytes for the
 //     last rows' windows), at most `stage` bytes, into shared memory with
-//     16-byte cp.async, zero-filled past the row. K2's row records for the
-//     tile come in by coalesced loads. A read that falls outside the staged
-//     span (a corrupt index, a span over `stage`) goes to global memory,
-//     bounded by the row: it gives what the plain version gives.
+//     16-byte cp.async, zero-filled past the row; the tile's plane offsets
+//     and K2's row records come in by coalesced loads meanwhile. A read
+//     that falls outside the staged span (a corrupt index, a span over
+//     `stage`) goes to global memory, bounded by the row: it gives what the
+//     plain version gives.
 //   - Work: a step decodes S planes in (block, plane) order, one half-warp a
 //     plane and one lane a row, so every lane works at any bpp; only a
 //     tile's last step can be ragged.
-//   - K2b's records come from the staged bytes: the header nibbles, the
-//     mins (a half-warp ballot and popc give each row's rank) and the row
-//     offsets, a 16-lane shuffle scan of the sizes the nibbles give; only
-//     the RLE rows (their size is in their mask at the running offset) are
-//     walked one after another, from shared memory.
+//   - K2b's records come from a register window of the plane's first 28
+//     bytes (header nibbles, the RLE mask, the mins; a half-warp ballot and
+//     popc give each row's rank) and the row offsets, a 16-lane shuffle scan
+//     of the sizes the nibbles give; only the RLE rows (their size is in
+//     their mask at the running offset) are walked one after another.
 //   - A row's <= 18 payload bytes come as five aligned shared-memory words
 //     and funnel shifts; the six row encodings (bit-unpack 1-6, RLE
 //     fill-left, delta-RLE, delta prefix sums, raw) give a + bflag *
@@ -52,8 +55,9 @@
 // 0.16 ms at 512 MiB at 64 INT32 lanes a clock an SM on an H100 SXM,
 // against 0.20 ms for its bytes at 3.35 TB/s (the stream bytes, the index
 // and the decoded output, each once). The design stages every stream byte
-// once with wide copies, reads the row table coalesced, keeps every lane
-// busy and writes every output byte once, coalesced.
+// once with wide copies, reads the index coalesced, keeps every lane busy
+// and writes every output byte once, coalesced. What holds it above that
+// (variant builds, PERF.md): K2b's records, a serial chain a plane.
 
 #include <cstdint>
 

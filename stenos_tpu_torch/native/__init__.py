@@ -48,9 +48,6 @@ class _Native:
         cdll.stn_lz4_guess_size.argtypes = [ctypes.c_char_p, _SZ, ctypes.c_int]
         cdll.stn_block_decode.restype = ctypes.c_ssize_t
         cdll.stn_block_decode.argtypes = [_P, _SZ, _SZ, _SZ, _P, _P]
-        cdll.stn_parse_rows_batch.restype = ctypes.c_ssize_t
-        cdll.stn_parse_rows_batch.argtypes = [
-            _P, _SZ, _SZ, _SZ, _SZ, _P, _P, _SZ, _P, _P, _P, _P, _P]
         cdll.stn_parse_rows_ptrs.restype = ctypes.c_ssize_t
         cdll.stn_parse_rows_ptrs.argtypes = [
             _P, _P, _SZ, _SZ, _SZ, _SZ, _P, _P, _P, _P, _I]
@@ -104,26 +101,27 @@ class _Native:
         If row_bytes is too small for the expanded stream, retries once at
         the worst-case bound (csize + sb per record).
         """
-        frame = bytes(frame)
+        frame = np.frombuffer(bytes(frame), np.uint8)
+        offs = np.ascontiguousarray(offs, np.int64)
+        csizes = np.ascontiguousarray(csizes, np.int64)
         n_sb = len(offs)
         P = sb // 256
         vbufs = np.empty((n_sb, row_bytes), np.uint8)
         plane_off = np.empty((n_sb, P), np.int32)
         rowtab = np.empty((n_sb, 16, P), np.int32)
-        offs = np.ascontiguousarray(offs, np.int64)
-        csizes = np.ascontiguousarray(csizes, np.int64)
         vlens = np.zeros(n_sb, np.int64)
-        scratch = np.empty(512 * bpp + 16, np.uint8)
-        r = self._lib.stn_parse_rows_batch(
-            frame, len(frame), bpp, sb, n_sb, _ptr(offs), _ptr(csizes),
-            row_bytes, _ptr(vbufs), _ptr(plane_off), _ptr(rowtab),
-            _ptr(vlens), _ptr(scratch))
+        past = np.flatnonzero(offs + csizes > len(frame))
+        k = int(past[0]) if len(past) else n_sb  # the first past the frame
+        _, r = self.parse_rows_ptrs(frame.ctypes.data + offs[:k], csizes[:k],
+                                    bpp, sb, row_bytes, vbufs, plane_off,
+                                    rowtab, vlens)
+        if r == 0 and k < n_sb:
+            r = -2  # ERR_SRC
         if r == -4 and row_bytes < int(csizes.max()) + sb:  # ERR_INPUT
             # LZ inlining expanded past row_bytes: retry at the hard bound
             # (each block inflates by at most 256*bpp over its stream bytes)
             wide = int(csizes.max()) + sb + 16
-            return self.parse_rows_batch(frame, bpp, sb, list(offs),
-                                         list(csizes), wide)
+            return self.parse_rows_batch(frame, bpp, sb, offs, csizes, wide)
         if r < 0:
             return int(r)
         return vbufs, plane_off, rowtab, vlens

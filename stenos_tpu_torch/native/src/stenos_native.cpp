@@ -1024,8 +1024,8 @@ EXPORT void stn_huff_tree_descs(const uint8_t* lengths, size_t n_blocks,
 //   bitpack/RLE/raw rows  -> their own header + payload offset
 //   ALL_SAME plane        -> 16 rows with header 0 (memset) and min = value
 //   ALL_RAW plane         -> 16 raw rows (header 15) at po + 16*r
-//   LZ / COPY blocks      -> decoded+shuffled on host into the patch area,
-//                            exposed as raw rows at patch offsets
+//   LZ / COPY blocks      -> decoded+shuffled on host, inlined into the
+//                            virtual stream as raw rows
 // NORMAL_RLE min vectors are resolved here (they are 16 bytes each), so the
 // device kernel needs no plane-level logic at all. Offsets are monotone
 // non-decreasing in stream order — the contract of ops/compact.expand.
@@ -1076,11 +1076,7 @@ inline ptrdiff_t parse_plane_rows_packed(const uint8_t* src, ptrdiff_t avail,
     return pos;
 }
 
-}  // namespace
-
-namespace {
-
-// One full method-BLOCK superblock's row index (see stn_parse_rows_batch):
+// One full method-BLOCK superblock's row index (see stn_parse_rows_ptrs):
 // its virtual payload into vb (row_bytes, zeros past it), plane offsets into
 // po (P), row records into rt (16, P); its virtual length into *vlen.
 ptrdiff_t parse_superblock_rows(const uint8_t* src, ptrdiff_t n, size_t bpp,
@@ -1091,124 +1087,106 @@ ptrdiff_t parse_superblock_rows(const uint8_t* src, ptrdiff_t n, size_t bpp,
     const size_t block_size = 256 * bpp;
     const size_t nb = sb / block_size;
     const size_t P = nb * bpp;
-    {
-        ptrdiff_t pos = 0;    // read position in src
-        size_t vpos = 0;      // write position in vb
-        ptrdiff_t seg = 0;    // start of pending verbatim segment
-        for (size_t b = 0; b < nb; ++b) {
-            if (pos >= n) return ERR_SRC;
-            const uint8_t marker = src[pos];
-            int32_t* bpo = po + b * bpp;
-            int32_t* brt = rt + b * bpp * 16;
-            if (marker == 252 || marker == 253) {  // COPY / LZ -> inline
-                const size_t keep = (size_t)(pos - seg);
-                if (vpos + keep + block_size > row_bytes) return ERR_INPUT;
-                // the packed plane index keeps codes in bits 24+; virtual
-                // offsets must stay within 24 bits (LZ inlining can grow the
-                // virtual stream past csize) — fall back to host decode if not
-                if (vpos + keep + block_size > 0xFFFFFF) return ERR_INPUT;
-                std::memcpy(vb + vpos, src + seg, keep);
-                vpos += keep;
-                ++pos;
-                uint8_t* dec = scratch;
-                if (marker == 252) {
-                    if (pos + (ptrdiff_t)block_size > n) return ERR_SRC;
-                    std::memcpy(dec, src + pos, block_size);
-                    pos += block_size;
-                } else {
-                    ptrdiff_t c = lz_block(src + pos, n - pos, bpp, dec);
-                    if (c < 0) return ERR_INPUT;
-                    pos += c;
-                }
-                seg = pos;
-                for (size_t p = 0; p < bpp; ++p) {
-                    uint8_t* dst = vb + vpos + p * 256;
-                    for (size_t e = 0; e < 256; ++e) dst[e] = dec[e * bpp + p];
-                    // inlined planes are raw 256-byte payloads: plane code 1
-                    // (ALL_RAW) packed in bits 24-25 for the derive-index
-                    // decode kernel; offsets stay in the low 24 bits
-                    bpo[p] = (int32_t)(vpos + p * 256) | (1 << 24);
-                    for (int r = 0; r < 16; ++r)
-                        rt[(size_t)r * P + b * bpp + p] =
-                            (int32_t)(r * 16) | (15 << 10);
-                }
-                vpos += block_size;
-                continue;
+    ptrdiff_t pos = 0;    // read position in src
+    size_t vpos = 0;      // write position in vb
+    ptrdiff_t seg = 0;    // start of pending verbatim segment
+    for (size_t b = 0; b < nb; ++b) {
+        if (pos >= n) return ERR_SRC;
+        const uint8_t marker = src[pos];
+        int32_t* bpo = po + b * bpp;
+        int32_t* brt = rt + b * bpp * 16;
+        if (marker == 252 || marker == 253) {  // COPY / LZ -> inline
+            const size_t keep = (size_t)(pos - seg);
+            if (vpos + keep + block_size > row_bytes) return ERR_INPUT;
+            // the packed plane index keeps codes in bits 24+; virtual
+            // offsets must stay within 24 bits (LZ inlining can grow the
+            // virtual stream past csize) — fall back to host decode if not
+            if (vpos + keep + block_size > 0xFFFFFF) return ERR_INPUT;
+            std::memcpy(vb + vpos, src + seg, keep);
+            vpos += keep;
+            ++pos;
+            uint8_t* dec = scratch;
+            if (marker == 252) {
+                if (pos + (ptrdiff_t)block_size > n) return ERR_SRC;
+                std::memcpy(dec, src + pos, block_size);
+                pos += block_size;
+            } else {
+                ptrdiff_t c = lz_block(src + pos, n - pos, bpp, dec);
+                if (c < 0) return ERR_INPUT;
+                pos += c;
             }
-            if (pos + (ptrdiff_t)hdr_w >= n) return ERR_SRC;
-            const uint8_t* codes = src + pos;
-            const int64_t vdelta = (int64_t)vpos - seg;
-            pos += hdr_w;
-            // 24-bit bound for packed offsets (see the inline-plane case);
-            // a block advances pos by at most hdr_w + bpp*257 < block_size+512
-            if (pos + vdelta + (int64_t)block_size + 512 > 0xFFFFFF)
-                return ERR_INPUT;
+            seg = pos;
             for (size_t p = 0; p < bpp; ++p) {
-                const int code = (codes[p >> 1] >> (4 * (p & 1))) & 15;
-                const size_t pg = b * bpp + p;
-                bpo[p] = (int32_t)(pos + vdelta) | ((int32_t)code << 24);
-                int32_t* prt = rt + pg;
-                if (code == 0) {  // ALL_SAME
-                    if (pos >= n) return ERR_SRC;
-                    const int32_t v = src[pos++];
-                    const int32_t rec = 1 | (v << 14);
-                    for (int r = 0; r < 16; ++r) prt[(size_t)r * P] = rec;
-                } else if (code == 1) {  // ALL_RAW
-                    if (pos + 256 > n) return ERR_SRC;
-                    for (int r = 0; r < 16; ++r)
-                        prt[(size_t)r * P] = (int32_t)(r * 16) | (15 << 10);
-                    pos += 256;
-                } else if (code == 2 || code == 3) {
-                    int32_t tmp[16];
-                    ptrdiff_t c = parse_plane_rows_packed(
-                        src + pos, n - pos, code == 3, tmp, 1);
-                    if (c < 0) return ERR_SRC;
-                    for (int r = 0; r < 16; ++r) prt[(size_t)r * P] = tmp[r];
-                    pos += c;
-                } else {
-                    return ERR_INPUT;
-                }
+                uint8_t* dst = vb + vpos + p * 256;
+                for (size_t e = 0; e < 256; ++e) dst[e] = dec[e * bpp + p];
+                // inlined planes are raw 256-byte payloads: plane code 1
+                // (ALL_RAW) packed in bits 24-25 for the derive-index
+                // decode kernel; offsets stay in the low 24 bits
+                bpo[p] = (int32_t)(vpos + p * 256) | (1 << 24);
+                for (int r = 0; r < 16; ++r)
+                    rt[(size_t)r * P + b * bpp + p] =
+                        (int32_t)(r * 16) | (15 << 10);
+            }
+            vpos += block_size;
+            continue;
+        }
+        if (pos + (ptrdiff_t)hdr_w >= n) return ERR_SRC;
+        const uint8_t* codes = src + pos;
+        const int64_t vdelta = (int64_t)vpos - seg;
+        pos += hdr_w;
+        // 24-bit bound for packed offsets (see the inline-plane case);
+        // a block advances pos by at most hdr_w + bpp*257 < block_size+512
+        if (pos + vdelta + (int64_t)block_size + 512 > 0xFFFFFF)
+            return ERR_INPUT;
+        for (size_t p = 0; p < bpp; ++p) {
+            const int code = (codes[p >> 1] >> (4 * (p & 1))) & 15;
+            const size_t pg = b * bpp + p;
+            bpo[p] = (int32_t)(pos + vdelta) | ((int32_t)code << 24);
+            int32_t* prt = rt + pg;
+            if (code == 0) {  // ALL_SAME
+                if (pos >= n) return ERR_SRC;
+                const int32_t v = src[pos++];
+                const int32_t rec = 1 | (v << 14);
+                for (int r = 0; r < 16; ++r) prt[(size_t)r * P] = rec;
+            } else if (code == 1) {  // ALL_RAW
+                if (pos + 256 > n) return ERR_SRC;
+                for (int r = 0; r < 16; ++r)
+                    prt[(size_t)r * P] = (int32_t)(r * 16) | (15 << 10);
+                pos += 256;
+            } else if (code == 2 || code == 3) {
+                int32_t tmp[16];
+                ptrdiff_t c = parse_plane_rows_packed(
+                    src + pos, n - pos, code == 3, tmp, 1);
+                if (c < 0) return ERR_SRC;
+                for (int r = 0; r < 16; ++r) prt[(size_t)r * P] = tmp[r];
+                pos += c;
+            } else {
+                return ERR_INPUT;
             }
         }
-        const size_t keep = (size_t)(pos - seg);
-        if (vpos + keep > row_bytes) return ERR_INPUT;
-        std::memcpy(vb + vpos, src + seg, keep);
-        vpos += keep;
-        std::memset(vb + vpos, 0, row_bytes - vpos);
-        // virtual length can EXCEED csize when LZ/COPY blocks (markers
-        // 252/253) were inlined as full 256*bpp planes; consumers must use
-        // this, not csize, to bound the virtual stream
-        *vlen = (int64_t)vpos;
     }
+    const size_t keep = (size_t)(pos - seg);
+    if (vpos + keep > row_bytes) return ERR_INPUT;
+    std::memcpy(vb + vpos, src + seg, keep);
+    vpos += keep;
+    std::memset(vb + vpos, 0, row_bytes - vpos);
+    // virtual length can EXCEED csize when LZ/COPY blocks (markers
+    // 252/253) were inlined as full 256*bpp planes; consumers must use
+    // this, not csize, to bound the virtual stream
+    *vlen = (int64_t)vpos;
     return 0;
 }
 
 }  // namespace
 
-// Batched full-superblock parse for the decode kernel: one call per frame.
-// For each of n_sb method-BLOCK payloads at frame+offs[i] (csizes[i] bytes,
-// all decoding to exactly sb bytes), writes
+// Batched full-superblock parse for the decode kernel (stn_parse_rows_ptrs):
+// for each of n_sb method-BLOCK payloads (csizes[i] bytes, all decoding to
+// exactly sb bytes) it writes
 //   vbufs    (n_sb, row_bytes)  virtual payload (LZ/COPY blocks replaced
 //                               inline by their decoded shuffled planes)
 //   plane_off(n_sb, P)          virtual plane start offsets
 //   rowtab   (n_sb, 16, P)      packed row records rel | hdr<<10 | min<<14
-// P = sb/256. Returns 0 or a negative error code.
-EXPORT ptrdiff_t stn_parse_rows_batch(
-    const uint8_t* frame, size_t frame_size, size_t bpp, size_t sb,
-    size_t n_sb, const int64_t* offs, const int64_t* csizes,
-    size_t row_bytes, uint8_t* vbufs, int32_t* plane_off, int32_t* rowtab,
-    int64_t* vlens, uint8_t* scratch /* >= 512*bpp */) {
-    const size_t P = sb / 256;
-    for (size_t i = 0; i < n_sb; ++i) {
-        if (offs[i] + csizes[i] > (int64_t)frame_size) return ERR_SRC;
-        const ptrdiff_t r = parse_superblock_rows(
-            frame + offs[i], (ptrdiff_t)csizes[i], bpp, sb, row_bytes,
-            vbufs + i * row_bytes, plane_off + i * P, rowtab + i * 16 * P,
-            vlens + i, scratch);
-        if (r < 0) return r;
-    }
-    return 0;
-}
+// P = sb/256.
 
 namespace {
 

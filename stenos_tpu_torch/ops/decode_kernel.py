@@ -111,7 +111,7 @@ def launch_plan(bpp: int, nb: int, n_sb: int = 1) -> dict:
             "smem": stage + out + po + rt}
 
 
-@functools.lru_cache(maxsize=None)
+@functools.lru_cache(maxsize=256)
 def _launch_args(bpp: int, nb: int, n_sb: int, derive: bool):
     p = launch_plan(bpp, nb, n_sb)
     smem = p["smem"] - (p["rowtab_bytes"] if derive else 0)
