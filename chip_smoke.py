@@ -17,15 +17,18 @@ step (host pass, copies, K2, copy into the output) -- and the
 device-resident paths on the same 512 MiB: roundtrip_device,
 DeviceCompressedArray (build, reads, serialize, deserialize) and
 compress_frame_device; K2 and K2b timed at their paths' shapes beside
-their bounds (with --old-src, a checkout of an earlier commit, its decode
-kernels too, in turns); then DeviceCompressedArray(entropy=True) on 512 MiB
-of a low-cardinality byte column and on the sorted int32; then the device
+their bounds; then DeviceCompressedArray(entropy=True) on 512 MiB of a
+low-cardinality byte column (K4 and K5 timed at its build's, to_array's and
+one slab read's shapes) and on the sorted int32; then the device
 zstd entropy stage (phase_zstd): a grid of payloads and the 512 MiB text
 cell (code text, bpp 1, level 2) compressed through libzstd and through
 compress(entropy="device"), both decompressed on the card, and K6 on the
-cell's sequences. It holds each kernel against its plain version again at
-the shapes those paths give it,
-times the kernels with CUDA events and prints the kernels' JSON line. Any
+cell's sequences (K5 timed on a text chunk). It holds each kernel against
+its plain version again at the shapes those paths give it, times the
+kernels with CUDA events and prints the kernels' JSON line. With --old-src
+(a checkout of an earlier commit), that commit's K2/K2b, K4 and K5 are
+timed beside these on the same inputs, in turns, and must give the same
+outputs. Any
 failure ends the run with a non-zero exit code. The last line is
 {"ok": true, "device": {...}}.
 """
@@ -39,11 +42,13 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from types import SimpleNamespace
 
 import numpy as np
 import torch
 
 import stenos_tpu_torch as stt
+from stenos_tpu_torch import device_container
 from stenos_tpu_torch import engine as eng
 from stenos_tpu_torch import frame as fr
 from stenos_tpu_torch import native
@@ -773,9 +778,10 @@ def phase_device(dev, raw, frame1):
 
 
 def load_old(src):
-    """ops.decode_kernel of the package in another checkout (the parent
+    """The kernel modules of the package in another checkout (the parent
     commit's: the old design), loaded under the name old_stenos_tpu_torch
-    with its own build directory."""
+    with its own build directory: .decode_kernel (K2, K2b), .huff_kernel
+    (K4) and .huff_decode_kernel (K5)."""
     pkg = os.path.join(os.path.abspath(src), "stenos_tpu_torch")
     spec = importlib.util.spec_from_file_location(
         "old_stenos_tpu_torch", os.path.join(pkg, "__init__.py"),
@@ -783,7 +789,33 @@ def load_old(src):
     mod = importlib.util.module_from_spec(spec)
     sys.modules[spec.name] = mod
     spec.loader.exec_module(mod)
-    return importlib.import_module("old_stenos_tpu_torch.ops.decode_kernel")
+    return SimpleNamespace(**{
+        name.rsplit(".", 1)[1]: importlib.import_module(
+            f"old_stenos_tpu_torch.{name}")
+        for name in ("ops.decode_kernel", "entropy.huff_kernel",
+                     "entropy.huff_decode_kernel")})
+
+
+def in_turns(name, new, old, reps, timers=(("ms", cuda_ms),)):
+    """Mean times of new() and, given old, of old() on the same inputs, in
+    turns (old, new, new, old), by each timer: {key: ms, "old_" + key: ms}.
+    old()'s outputs must equal new()'s."""
+    def outs(fn):
+        got = fn()
+        return got if isinstance(got, tuple) else (got,)
+
+    if old is not None:
+        check(all(torch.equal(a, b) for a, b in zip(outs(new), outs(old))),
+              f"{name}: the new kernel differs from the old design")
+    res = {}
+    for key, timer in timers:
+        ms = {"old": [], "new": []}
+        for who in ("old", "new", "new", "old") if old else ("new",):
+            ms[who].append(timer(old if who == "old" else new, reps))
+        res[key] = sum(ms["new"]) / len(ms["new"])
+        if old is not None:
+            res["old_" + key] = sum(ms["old"]) / len(ms["old"])
+    return res
 
 
 def phase_decode_times(dev, raw, frame1, old=None):
@@ -829,6 +861,7 @@ def phase_decode_times(dev, raw, frame1, old=None):
         cases[name] = ("decode_rows_derive", (r, p, bpp, nbk, order),
                        int(t.sum()) + p.numel() * 4,
                        r.shape[0] * nbk * 256 * bpp)
+    old = old and old.decode_kernel
     res = {}
     for name, (fn, args, moved, out_bytes) in cases.items():
         new = getattr(decode_kernel, fn)
@@ -886,7 +919,7 @@ def low_card_device(dev, nbytes, seed=42):
     return (k + 97).to(torch.uint8).cpu().numpy()
 
 
-def entropy_kernels(dev, src, e, err, times=None):
+def entropy_kernels(dev, src, e, err, times=None, old=None):
     """K3, K4 and K5 against their plain versions on the full inputs of the
     calls an entropy build and its to_array make: K3 and K4 on the record
     blocks of src (the entropy=False container of the same array), every
@@ -894,7 +927,8 @@ def entropy_kernels(dev, src, e, err, times=None):
     the stage dropped). The store's rows must be the encode's rows of its
     coded blocks, and K5 must give those blocks back. Maxima go into err;
     with times given, each kernel is timed there too (torch.bincount as
-    K3's library yardstick) with the bytes its bound counts."""
+    K3's library yardstick) with the bytes its bound counts, and with old
+    (load_old) K4 and K5 of the old design beside the new, in turns."""
     blocks = record_blocks(src._rows, src._totals)
     nblk = blocks.shape[0]
     check(e is None or len(e.flags) == nblk, "record blocks")
@@ -925,12 +959,20 @@ def entropy_kernels(dev, src, e, err, times=None):
     del p
     if times is not None:
         # one LUT per block: its four streams share it
+        # bytes: the bitstreams as the bound counts them; rows_bytes: the
+        # contract's whole rows (each bitstream and its zeros to 48 KiB)
+        side = streams.numel() + luts.nbytes + enc[2].numel() * 4 \
+            + enc[1].numel() * 4
         times["huff_encode_streams"] = {
-            "ms": cuda_ms(lambda: huff_kernel.encode_streams(
-                streams, lut, with_anchors=True), 10),
+            **in_turns("K4", lambda: huff_kernel.encode_streams(
+                streams, lut, with_anchors=True),
+                old and (lambda: old.huff_kernel.encode_streams(
+                    streams, lut, with_anchors=True)), 10),
             "plain_ms": p_ms,
-            "bytes": (streams.numel() + luts.nbytes + int(enc[1].sum())
-                      + enc[2].numel() * 4 + enc[1].numel() * 4)}
+            "bytes": side + int(enc[1].sum()),
+            "rows_bytes": side + enc[0].numel() * 4}
+        times["huff_encode_streams"]["rows_bound_ms"] = (
+            times["huff_encode_streams"]["rows_bytes"] / HBM_BYTES_PER_S * 1e3)
     if e is None:
         return
     coded = np.flatnonzero(e.flags)
@@ -953,22 +995,26 @@ def entropy_kernels(dev, src, e, err, times=None):
     if times is not None:
         # one table per coded block: its four streams share it
         times["huff_decode_streams"] = {
-            "ms": cuda_ms(lambda: huff_decode_kernel.decode_streams(
-                wb, e.anchors, e.tabs), 10),
+            **in_turns("K5", lambda: huff_decode_kernel.decode_streams(
+                wb, e.anchors, e.tabs),
+                old and (lambda: old.huff_decode_kernel.decode_streams(
+                    wb, e.anchors, e.tabs)), 10),
             "plain_ms": p_ms,
             "bytes": (int(e.sizes.sum()) + e.anchors.numel() * 4
                       + len(coded) * e.tabs.shape[1] * 4
                       + wb.shape[0] * STREAM)}
 
 
-def phase_entropy(dev, raw):
+def phase_entropy(dev, raw, old=None):
     """DeviceCompressedArray(entropy=True), each path with the launch counts
     set to 0 just before it and read just after: HEADLINE_MB of the
     low-cardinality column (bpp 1, slabs of 32 KiB), then the sorted int32
     headline. On both, K3, K4 and K5 are held against their plain versions
     on the full inputs of the calls the build and to_array make (the plain
     versions in slices); on the low-cardinality column they are timed
-    there too."""
+    there too, K5 also on the call of the first slab read (queued behind a
+    sleep kernel and as called), and with old (load_old) K4 and K5 of the
+    old design beside them."""
     d = low_card_device(dev, HEADLINE_MB * MIB)
     res = {"launches": {}}
     reset_counts()
@@ -993,11 +1039,12 @@ def phase_entropy(dev, raw):
     rng = np.random.default_rng(5)
     reset_counts()
     t0 = time.perf_counter()
-    for i in rng.integers(0, arr.n_slabs, 100):
-        got = arr.slab(int(i)).cpu().numpy()
-        check(got.tobytes() == d[i * arr.slab_bytes:
-                                 (i + 1) * arr.slab_bytes].tobytes(),
-              f"entropy container slab {i}")
+    with Capture(device_container, "decode_streams", 1) as k5r:
+        for i in rng.integers(0, arr.n_slabs, 100):
+            got = arr.slab(int(i)).cpu().numpy()
+            check(got.tobytes() == d[i * arr.slab_bytes:
+                                     (i + 1) * arr.slab_bytes].tobytes(),
+                  f"entropy container slab {i}")
     slab_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     for i in rng.integers(0, len(d), 1000):
@@ -1031,7 +1078,24 @@ def phase_entropy(dev, raw):
         f"element read {element_s:.4f} ms; reads and serialize == input; "
         f"launches {res['launches']}")
     err, times = {}, {}
-    entropy_kernels(dev, plain, e, err, times)
+    entropy_kernels(dev, plain, e, err, times, old)
+    # K5 as a slab read calls it: the rows of the blocks the slab spans
+    a5 = k5r.calls[0][0]
+    err["huff_decode_streams"] = max(err["huff_decode_streams"], huff_err(
+        (huff_decode_kernel.decode_streams(*a5),),
+        (huff_decode_kernel.decode_streams_plain(*a5),)))
+    reach = (a5[1].max(1).values.clamp(min=0) + 7) // 8
+    times["huff_decode_streams"]["read_call"] = r5 = {
+        **in_turns("K5 on a read's rows",
+                   lambda: huff_decode_kernel.decode_streams(*a5),
+                   old and (lambda: old.huff_decode_kernel.decode_streams(
+                       *a5)), 20,
+                   (("queued_ms", queued_ms), ("called_ms", cuda_ms))),
+        "rows": a5[0].shape[0], "width": a5[0].shape[1],
+        "bytes": (int(reach.clamp(max=a5[0].shape[1]).sum())
+                  + a5[1].numel() * 4 + a5[2].numel() * 4
+                  + a5[0].shape[0] * STREAM)}
+    r5["bound_ms"] = r5["bytes"] / HBM_BYTES_PER_S * 1e3
     del arr, e, plain
     for name, t in times.items():
         t["bound_ms"] = t["bytes"] / HBM_BYTES_PER_S * 1e3
@@ -1166,7 +1230,7 @@ def frame_payloads(frame_bytes, bpp, n):
     return pays, sizes
 
 
-def phase_zstd(dev):
+def phase_zstd(dev, old=None):
     """The device zstd entropy stage. (a) decode_payloads_device on one
     batch of a grid of 2-3 block payloads: device frames of literals,
     64-byte records, mixed blocks and a partial tail, and a libzstd frame at
@@ -1183,7 +1247,8 @@ def phase_zstd(dev):
     encode_sequences and decoded back through K7. (d) K5, K6, K7 and X1
     against their plain versions on the calls of (a)-(c); K7 and X1 timed on
     the path's own call, the first 64 MiB chunk of the libzstd frame's
-    decode."""
+    decode, and K5 on that chunk's call too (with old, load_old, beside the
+    old design's K5, in turns)."""
     res = {"launches": {}}
     err = {"fse_encode": 0, "seq_decode": 0, "seq_exec": 0,
            "huff_histogram": 0, "huff_encode_streams": 0,
@@ -1395,7 +1460,10 @@ def phase_zstd(dev):
     a5 = cell["libzstd"]["k5_call"]
     _, p5_ms = timed(lambda: huff_decode_kernel.decode_streams_plain(*a5))
     k5t = res["k5_text_call"] = {
-        "ms": cuda_ms(lambda: huff_decode_kernel.decode_streams(*a5), 10),
+        **in_turns("K5 on a text chunk",
+                   lambda: huff_decode_kernel.decode_streams(*a5),
+                   old and (lambda: old.huff_decode_kernel.decode_streams(
+                       *a5)), 10),
         "plain_ms": p5_ms, "rows": a5[0].shape[0], "width": a5[0].shape[1],
         "bytes": (a5[0].numel() + a5[1].numel() * 4 + a5[2].numel() * 4
                   + a5[0].shape[0] * STREAM)}
@@ -1476,7 +1544,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="chiprun_out/chip_smoke.json")
     ap.add_argument("--old-src", help="a checkout of an earlier commit: its "
-                    "decode kernels are timed beside these, in turns")
+                    "K2/K2b, K4 and K5 kernels are timed beside these, in "
+                    "turns")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1508,11 +1577,11 @@ def main():
                                               "bytes")},
             shapes={k: v for k, v in dtimes.items()
                     if k.startswith("k2b_" if "derive" in name else "k2_")})
-    eres, times_ent, err_ent = phase_entropy(dev, raw)
+    eres, times_ent, err_ent = phase_entropy(dev, raw, old)
     log(f"  [{time.perf_counter() - t0:.1f} s]")
     times.update(times_ent)
     err.update(err_ent)
-    zres, times_z, err_z = phase_zstd(dev)
+    zres, times_z, err_z = phase_zstd(dev, old)
     log(f"  [{time.perf_counter() - t0:.1f} s]")
     times.update(times_z)
     for name, e in err_z.items():

@@ -9,9 +9,11 @@ stenos_tpu/entropy/huff_decode_pallas.py::make_decode_kernel_v6), a CPU
 tensor through decode_streams_plain, which follows v6's arithmetic: one
 22-bit lookahead serves two symbols; a code's length comes from comparing
 the left-aligned 11-bit window with E_l = (base_l + n_l) << (11 - l), its
-rank from the window and the per-length offsets; the rank indexes the
-(length descending, symbol ascending) symbol list. Bits below bit 0 and
-bytes past the row read as zeros.
+rank from the window and the per-length offsets (classify); the rank
+indexes the (length descending, symbol ascending) symbol list. Bits below
+bit 0 and bytes past the row read as zeros. The kernel decodes by table:
+decode_lut_plain gives the 2^11-entry lookup it builds for each stream, the
+(symbol, length) of every 11-bit window.
 
   stream_bytes (ns, nbytes) uint8, nbytes % 4 == 0: the bitstreams
   anchors      (ns, 256) int32
@@ -64,7 +66,7 @@ def _window22(buf, r):
     appended), zeros below bit 0: v6's W22."""
     lob = (r - 22).clamp(min=0)
     b = (lob >> 3)[..., None] + torch.arange(4, device=buf.device)
-    b = b.clamp(max=buf.shape[1] - 1).reshape(buf.shape[0], -1)
+    b = b.clamp(max=buf.shape[1] - 1).flatten(1)
     v = torch.gather(buf, 1, b).reshape(*r.shape, 4)
     word = v[..., 0] | (v[..., 1] << 8) | (v[..., 2] << 16) | (v[..., 3] << 24)
     wn = (word >> (lob & 7)) & 0x3FFFFF
@@ -75,6 +77,61 @@ def _window22(buf, r):
     return torch.where(r >= 22, wn, wb)
 
 
+def _bounds(tab):
+    """E_l and D_l = offset_l - base_l, each (ns, 11) int64 (column i is
+    length i + 1), of (ns, 304) int64 tables."""
+    lv = torch.arange(1, MAX_BITS + 1, device=tab.device)
+    return ((tab[:, 1:12] + tab[:, 13:24]) << (11 - lv),
+            tab[:, 25:36] - tab[:, 1:12])
+
+
+def classify(tab, W):
+    """v6's (length, rank) of left-aligned 11-bit windows W (ns, k) int64
+    under (ns, 304) int64 tables: the length is 11 minus the number of
+    bounds E_l that W reaches, the rank W's top bits plus a telescoped
+    per-length offset."""
+    E, D = _bounds(tab)
+    cnt = torch.zeros_like(W)
+    dd = D[:, 10:11].expand_as(W).clone()
+    for i in range(11):
+        m = (W >= E[:, i:i + 1]).long()
+        cnt += m
+        if i >= 1:
+            dd -= m * (D[:, i:i + 1] - D[:, i - 1:i])
+    ln = 11 - cnt
+    return ln, (W >> (11 - ln)) + dd
+
+
+def symbols(tab, ranks):
+    """The symbols of ranks (ns, k) under (ns, 304) int64 tables: 0 for a
+    rank outside [0, 256)."""
+    ok = (ranks >= 0) & (ranks < 256)
+    out = torch.gather(tab[:, 40:296], 1, torch.where(ok, ranks, 0))
+    return torch.where(ok, out, 0)
+
+
+def decode_lut_plain(tables):
+    """(ns, 304) int32 tables -> (ns, 2048) int32: the lookup the kernel
+    builds, entry W = symbol | length << 8 of the left-aligned 11-bit window
+    W. Built as the kernel builds it, 8 entries a thread: the bounds of
+    lengths 1-8 are multiples of 8, so they are compared with W & ~7, those
+    of lengths 9-11 with W; it equals classify for every table."""
+    tab = tables.long()
+    ns = tab.shape[0]
+    E, D = _bounds(tab)
+    W = torch.arange(2048, device=tab.device).expand(ns, -1)
+    cnt = torch.zeros_like(W)
+    dd = D[:, 10:11].expand_as(W).clone()
+    for i in range(11):
+        m = ((W & ~7 if i < 8 else W) >= E[:, i:i + 1]).long()
+        cnt += m
+        if i >= 1:
+            dd -= m * (D[:, i:i + 1] - D[:, i - 1:i])
+    ln = 11 - cnt
+    sym = symbols(tab, (W >> (11 - ln)) + dd)
+    return (sym | ln << 8).to(torch.int32)
+
+
 def decode_streams_plain(stream_bytes, anchors, tables):
     """Plain torch version, vectorised over streams and segments: 64 steps
     of two symbols (see the module docstring)."""
@@ -83,33 +140,15 @@ def decode_streams_plain(stream_bytes, anchors, tables):
     buf = torch.cat([stream_bytes, torch.zeros((ns, 4), dtype=torch.uint8,
                                                device=dev)], 1).long()
     tab = tables.long()
-    lv = torch.arange(1, MAX_BITS + 1, device=dev)
-    E = (tab[:, 1:12] + tab[:, 13:24]) << (11 - lv)  # (ns, 11), length l+1
-    D = tab[:, 25:36] - tab[:, 1:12]
-    syms = tab[:, 40:296]
-
-    def classify(W):
-        cnt = torch.zeros_like(W)
-        dd = D[:, 10:11].expand_as(W).clone()
-        for i in range(11):
-            m = (W >= E[:, i:i + 1]).long()
-            cnt += m
-            if i >= 1:
-                dd -= m * (D[:, i:i + 1] - D[:, i - 1:i])
-        ln = 11 - cnt
-        return ln, (W >> (11 - ln)) + dd
-
     r = anchors.long()
     ranks = torch.empty((ns, SEGS, SEG), dtype=torch.int64, device=dev)
     for k in range(SEG // 2):
         W22 = _window22(buf, r)
-        ln0, ranks[:, :, 2 * k] = classify(W22 >> 11)
-        ln1, ranks[:, :, 2 * k + 1] = classify((W22 >> (11 - ln0)) & 0x7FF)
+        ln0, ranks[:, :, 2 * k] = classify(tab, W22 >> 11)
+        ln1, ranks[:, :, 2 * k + 1] = classify(tab,
+                                               (W22 >> (11 - ln0)) & 0x7FF)
         r = r - ln0 - ln1
-    ranks = ranks.reshape(ns, STREAM)
-    ok = (ranks >= 0) & (ranks < 256)
-    out = torch.gather(syms, 1, torch.where(ok, ranks, 0))
-    return torch.where(ok, out, 0).to(torch.uint8)
+    return symbols(tab, ranks.reshape(ns, STREAM)).to(torch.uint8)
 
 
 def decode_streams(stream_bytes, anchors, tables):

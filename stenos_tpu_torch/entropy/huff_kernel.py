@@ -12,9 +12,9 @@ encode_streams(streams, luts, with_anchors) is the huff0 literal encode of
 32 KiB streams (it replaces huff_pallas.py::make_stream_kernel; plain
 version encode_streams_plain). Symbols are emitted last first: natural index
 i sits at emission position STREAM - 1 - i, each as its code (luts: code |
-len << 11) at the bit offset given by the exclusive sum of the lengths in
-emission order, little-endian in 32-bit words, and one end-mark bit follows
-the last code.
+len << 11, len <= 11 and code < 2^len, as luts_batch makes them) at the bit
+offset given by the exclusive sum of the lengths in emission order,
+little-endian in 32-bit words, and one end-mark bit follows the last code.
 
   streams (ns, STREAM) uint8, luts (ns, 256) int32 ->
   words   (ns, WOUT_WORDS) int32  the bitstream, zero past the end mark
