@@ -826,9 +826,9 @@ def phase_decode_times(dev, raw, frame1, old=None):
     each (bpp 4, nb 32) and of a low-cardinality bpp-1 container (nb 128).
     Each new call is held against the plain version, or at 512 MiB against
     the earlier phases' comparison of the same inputs. With old (load_old),
-    the old design on the same inputs, in turns (old, new, new, old), and
-    its outputs must equal the new ones. Times are queued_ms (the card's),
-    and cuda_ms beside them (*_called_ms: as a caller sees a call)."""
+    the old design on the same inputs, in turns (in_turns). Times are
+    queued_ms (ms: the card's), and cuda_ms beside them (called_ms: as a
+    caller sees a call)."""
     sb = fr.super_block_size(1024)
     nb = sb // 1024
     n_sb = len(raw) // sb
@@ -861,7 +861,6 @@ def phase_decode_times(dev, raw, frame1, old=None):
         cases[name] = ("decode_rows_derive", (r, p, bpp, nbk, order),
                        int(t.sum()) + p.numel() * 4,
                        r.shape[0] * nbk * 256 * bpp)
-    old = old and old.decode_kernel
     res = {}
     for name, (fn, args, moved, out_bytes) in cases.items():
         new = getattr(decode_kernel, fn)
@@ -869,24 +868,14 @@ def phase_decode_times(dev, raw, frame1, old=None):
         if got.numel() <= CHUNK_BYTES:
             check(torch.equal(got, getattr(decode_kernel, fn + "_plain")(
                 *args)), f"{name}: the kernel differs from its plain version")
-        reps = 5 if got.numel() > CHUNK_BYTES else 20
-        r = {"new_ms": [], "new_called_ms": []}
-        turns = ("new",)
-        if old is not None:
-            check(torch.equal(got, getattr(old, fn)(*args)),
-                  f"{name}: the new kernel differs from the old design")
-            r.update(old_ms=[], old_called_ms=[])
-            turns = ("old", "new", "new", "old")
-        for who in turns:
-            f = getattr(old if who == "old" else decode_kernel, fn)
-            r[f"{who}_ms"].append(queued_ms(lambda: f(*args), reps))
-            r[f"{who}_called_ms"].append(cuda_ms(lambda: f(*args), reps))
         del got
-        r["ms"] = sum(r["new_ms"]) / len(r["new_ms"])
-        if old is not None:
-            r["old_mean_ms"] = sum(r["old_ms"]) / 2
-        res[name] = {**r, **decode_bound(moved + out_bytes, out_bytes),
-                     "out_bytes": out_bytes}
+        res[name] = {
+            **in_turns(name, lambda: new(*args),
+                       old and (lambda: getattr(old.decode_kernel, fn)(*args)),
+                       5 if out_bytes > CHUNK_BYTES else 20,
+                       (("ms", queued_ms), ("called_ms", cuda_ms))),
+            **decode_bound(moved + out_bytes, out_bytes),
+            "out_bytes": out_bytes}
         log(f"{name}: " + ", ".join(
             f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
             for k, v in res[name].items()))

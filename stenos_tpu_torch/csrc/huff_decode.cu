@@ -30,9 +30,11 @@
 // position: the same bits, bits below bit 0 and past the row reading as
 // zeros in both. A thread's 128 output bytes are contiguous: every 32
 // symbols, neighbouring lanes trade 16 bytes with a shuffle and each stores
-// 16, so that a warp's store fills whole 32-byte sectors. Bound: bytes (the bitstreams, anchors and
-// tables in, 32 KiB a stream out); the per-symbol chain (peek, shared load,
-// subtract) is hidden by the other warps of the SM.
+// 16, so that a warp's store fills whole 32-byte sectors (each lane storing
+// its own 16 bytes at a 128-byte stride took a fifth longer). Bound: bytes
+// (the bitstreams, anchors and tables in, 32 KiB a stream out); the
+// per-symbol chain (peek, shared load, subtract) is left to the other warps
+// of the SM to hide (40 registers, six CTAs an SM).
 
 #include <cstdint>
 

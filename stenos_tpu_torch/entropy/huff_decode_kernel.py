@@ -85,21 +85,27 @@ def _bounds(tab):
             tab[:, 25:36] - tab[:, 1:12])
 
 
-def classify(tab, W):
-    """v6's (length, rank) of left-aligned 11-bit windows W (ns, k) int64
-    under (ns, 304) int64 tables: the length is 11 minus the number of
-    bounds E_l that W reaches, the rank W's top bits plus a telescoped
-    per-length offset."""
+def _classify(tab, W, W8):
+    """classify, with W8 in W's place in the compares with the bounds of
+    lengths 1-8."""
     E, D = _bounds(tab)
     cnt = torch.zeros_like(W)
     dd = D[:, 10:11].expand_as(W).clone()
     for i in range(11):
-        m = (W >= E[:, i:i + 1]).long()
+        m = ((W8 if i < 8 else W) >= E[:, i:i + 1]).long()
         cnt += m
         if i >= 1:
             dd -= m * (D[:, i:i + 1] - D[:, i - 1:i])
     ln = 11 - cnt
     return ln, (W >> (11 - ln)) + dd
+
+
+def classify(tab, W):
+    """v6's (length, rank) of left-aligned 11-bit windows W (ns, k) int64
+    under (ns, 304) int64 tables: the length is 11 minus the number of
+    bounds E_l that W reaches, the rank W's top bits plus a telescoped
+    per-length offset."""
+    return _classify(tab, W, W)
 
 
 def symbols(tab, ranks):
@@ -117,19 +123,9 @@ def decode_lut_plain(tables):
     lengths 1-8 are multiples of 8, so they are compared with W & ~7, those
     of lengths 9-11 with W; it equals classify for every table."""
     tab = tables.long()
-    ns = tab.shape[0]
-    E, D = _bounds(tab)
-    W = torch.arange(2048, device=tab.device).expand(ns, -1)
-    cnt = torch.zeros_like(W)
-    dd = D[:, 10:11].expand_as(W).clone()
-    for i in range(11):
-        m = ((W & ~7 if i < 8 else W) >= E[:, i:i + 1]).long()
-        cnt += m
-        if i >= 1:
-            dd -= m * (D[:, i:i + 1] - D[:, i - 1:i])
-    ln = 11 - cnt
-    sym = symbols(tab, (W >> (11 - ln)) + dd)
-    return (sym | ln << 8).to(torch.int32)
+    W = torch.arange(2048, device=tab.device).expand(tab.shape[0], -1)
+    ln, rank = _classify(tab, W, W & ~7)
+    return (symbols(tab, rank) | ln << 8).to(torch.int32)
 
 
 def decode_streams_plain(stream_bytes, anchors, tables):
