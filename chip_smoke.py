@@ -23,14 +23,13 @@ one slab read's shapes) and on the sorted int32; then the device
 zstd entropy stage (phase_zstd): a grid of payloads and the 512 MiB text
 cell (code text, bpp 1, level 2) compressed through libzstd and through
 compress(entropy="device"), both decompressed on the card, and K6 on the
-cell's sequences (K5 timed on a text chunk). It holds each kernel against
-its plain version again at the shapes those paths give it, times the
-kernels with CUDA events and prints the kernels' JSON line. With --old-src
-(a checkout of an earlier commit), that commit's K2/K2b, K4 and K5 are
-timed beside these on the same inputs, in turns, and must give the same
-outputs. Any
-failure ends the run with a non-zero exit code. The last line is
-{"ok": true, "device": {...}}.
+cell's sequences (K5 timed on a text chunk, K6 on 64 blocks). It holds each
+kernel against its plain version again at the shapes those paths give it,
+times the kernels with CUDA events and prints the kernels' JSON line. With
+--old-src (a checkout of an earlier commit), that commit's K2/K2b, K4, K5
+and K6 are timed beside these on the same inputs, in turns, and must give
+the same outputs. Any failure ends the run with a non-zero exit code. The
+last line is {"ok": true, "device": {...}}.
 """
 
 import argparse
@@ -82,6 +81,11 @@ ENCODE_OPS_PER_BYTE = 11
 # per-element body of csrc/decode_rows.cu (unpack shift and mask, the min or
 # the running sum, the carry, the store); the records come on top
 DECODE_OPS_PER_BYTE = 5
+# K6's chain: one state step's latency at least, a dependent shared-memory
+# load (~30 cycles) and five dependent integer operations (~4 cycles each);
+# NVIDIA publishes no latencies: an estimate
+K6_STEP_CYCLES = 50
+CLOCK_HZ = 1.98e9  # H100 SXM boost clock (data sheet)
 MIB = 1024 * 1024
 HEADLINE_MB = 512  # bench.py's headline size
 TEXT_MB = 512  # the text cell: 4096 superblocks of 128 KiB
@@ -376,6 +380,7 @@ def phase_kernels(dev):
         "record_bound (zeros past every record), "
         "decode_rows_derive in 'jb' and 'bj' order")
     huff_grid(rng, dev, record)
+    fse_grid(rng, dev, record)
     log(f"max abs err on the card: {err}")
     return err
 
@@ -448,6 +453,81 @@ def huff_grid(rng, dev, record):
     log(f"Huffman kernels == plain versions on the card: {n} cases over 6 "
         "kinds x 1 and 3 blocks; decode on bucket and whole rows and on "
         "corrupt anchors; decode(encode(x)) == x")
+
+
+def fse_seqs(rng, n):
+    """n random sequences (ll, offset value, ml) as an (n, 3) array."""
+    return np.stack([rng.integers(0, 20, n), rng.integers(1, 60000, n) + 3,
+                     rng.integers(3, 200, n)], 1)
+
+
+def fse_grid(rng, dev, record):
+    """K6 (the launch, encode_bitstreams_cuda) against its plain version on
+    blocks built on the card: a block whose three channels have no sync
+    point (four codes each, uniform, offsets never repeats), an all-RLE
+    block, one sequence, 20 sequences (the predefined tables), and blocks
+    of 40,000 (past 0x7F00: the long nseq header; codes staged) and 60,000
+    sequences (past the kernel's 49,152: codes read from the rows), in one
+    batch; then a small batch with one block's word_cap a word short (bits
+    -1 and its first word_cap words; the wrapper raises RuntimeError), and a
+    table whose state leaves its range (the kernel's -2: the wrapper raises
+    ValueError)."""
+    i = np.arange(5000)
+    blocks = {
+        "no_sync": (np.stack([i % 4, 16 << (i % 4), 3 + (i * 3) % 4], 1),
+                    FRESH_REPS),
+        "rle": (np.tile([[7, 64 + 3, 40]], (3000, 1)), (64, 4, 8)),
+        "one": (np.array([[5, 1003, 30]]), FRESH_REPS),
+        "predefined": (fse_seqs(rng, 20), FRESH_REPS),
+        "long_staged": (fse_seqs(rng, 40_000), FRESH_REPS),
+        "long_rows": (fse_seqs(rng, 60_000), FRESH_REPS)}
+    preps = {k: fse_kernel.prep_block(sq, reps)[1]
+             for k, (sq, reps) in blocks.items()}
+    args = fse_kernel.pack_blocks(list(preps.values()), dev)
+    sync = fse_kernel.sync_states(args[1], args[2])
+    rows = preps["no_sync"]["seqs"]
+    ns = list(preps).index("no_sync")
+    check(all(int((sync[ns, ch][torch.from_numpy(rows[:, ch]).to(dev).long()]
+                   >= 0).sum()) == 0 for ch in range(3)),
+          "the no-sync block has a sync point")
+    k = fse_kernel.encode_bitstreams_cuda(*args)
+    p = fse_kernel.encode_bitstreams_plain(*args)
+    check(bool((k[1] > 0).all()), f"K6 grid bits {k[1].tolist()}")
+    record("fse_encode", huff_err(k, p), ("grid", list(preps)))
+    # one block a word short
+    small = [preps[n] for n in ("no_sync", "rle", "one", "predefined")]
+    seqs, tabs, meta = fse_kernel.pack_blocks(small, dev)
+    need = (fse_kernel.encode_bitstreams_plain(seqs, tabs, meta)[1] + 31) // 32
+    cap = meta[:, 3].clone()
+    cap[0] = need[0] - 1
+    short = meta.clone()
+    short[:, 3] = cap
+    short[:, 2] = torch.cumsum(cap, 0) - cap
+    k = fse_kernel.encode_bitstreams_cuda(seqs, tabs, short)
+    p = fse_kernel.encode_bitstreams_plain(seqs, tabs, short)
+    check(k[1][0].item() == -1 and bool((k[1][1:] > 0).all()),
+          f"K6 capacity report: {k[1].tolist()}")
+    record("fse_encode", huff_err(k, p), ("a block a word short",))
+    try:
+        fse_kernel.encode_bitstreams(seqs, tabs, short)
+        check(False, "K6's wrapper took a block over its word_cap")
+    except RuntimeError as e:
+        check("word room" in str(e), f"K6 capacity: {e}")
+    # the RLE block's LL state table set to 5: its state leaves [0, 0]
+    bad = tabs.clone()
+    bad[1, 0, 2 * fse_kernel.NSYM] = 5
+    check(fse_kernel.encode_bitstreams_plain(seqs, bad, meta)[1].min() > 0,
+          "the plain version of the bad table")
+    check(fse_kernel.encode_bitstreams_cuda(seqs, bad, meta)[1][1].item()
+          == -2, "K6 did not report the bad table's block")
+    try:
+        fse_kernel.encode_bitstreams(seqs, bad, meta)
+        check(False, "K6 took a state out of its range")
+    except ValueError as e:
+        check("range" in str(e), f"K6 bad table: {e}")
+    log("K6 == plain version on the card: no sync point, RLE, one sequence, "
+        "predefined tables, 40,000 and 60,000 sequences; a block a word "
+        "short (-1, the wrapper raises); a state out of range (raises)")
 
 
 def phase_frames(dev):
@@ -781,7 +861,7 @@ def load_old(src):
     """The kernel modules of the package in another checkout (the parent
     commit's: the old design), loaded under the name old_stenos_tpu_torch
     with its own build directory: .decode_kernel (K2, K2b), .huff_kernel
-    (K4) and .huff_decode_kernel (K5)."""
+    (K4), .huff_decode_kernel (K5) and .fse_kernel (K6)."""
     pkg = os.path.join(os.path.abspath(src), "stenos_tpu_torch")
     spec = importlib.util.spec_from_file_location(
         "old_stenos_tpu_torch", os.path.join(pkg, "__init__.py"),
@@ -793,7 +873,7 @@ def load_old(src):
         name.rsplit(".", 1)[1]: importlib.import_module(
             f"old_stenos_tpu_torch.{name}")
         for name in ("ops.decode_kernel", "entropy.huff_kernel",
-                     "entropy.huff_decode_kernel")})
+                     "entropy.huff_decode_kernel", "entropy.fse_kernel")})
 
 
 def in_turns(name, new, old, reps, timers=(("ms", cuda_ms),)):
@@ -1219,6 +1299,46 @@ def frame_payloads(frame_bytes, bpp, n):
     return pays, sizes
 
 
+def k6_launch(mod, args):
+    """K6's launch alone (mod: a package's fse_kernel module, this one's or
+    load_old's), on fresh zeroed words: a function returning (words,
+    bits). Not counted in the launches: it times and compares."""
+    lib = mod._cuda.load("fse_encode", mod._SIGNATURES)
+    seqs, tabs, meta = args
+    words = torch.zeros(int(meta[:, 3].sum()), dtype=torch.int32,
+                        device=seqs.device)
+    bits = torch.zeros(meta.shape[0], dtype=torch.int64, device=seqs.device)
+    stream = torch.cuda.current_stream(seqs.device).cuda_stream
+
+    def fn():
+        _cuda.check(lib.stenos_fse_encode(
+            seqs.data_ptr(), tabs.data_ptr(), meta.data_ptr(), meta.shape[0],
+            words.data_ptr(), bits.data_ptr(), stream), "fse_encode")
+        return words, bits
+
+    return fn
+
+
+def k6_sync_profile(seqs, tabs, meta):
+    """Per channel (LL, ML, OF): the share of K6's sequences that are sync
+    points (fse_kernel.sync_states), and the longest sync-free run in walk
+    steps over the blocks."""
+    sync = fse_kernel.sync_states(tabs, meta).cpu().numpy()
+    rows, m = seqs.cpu().numpy(), meta.cpu().numpy()
+    hits, longest = np.zeros(3), np.zeros(3, np.int64)
+    for b in range(len(m)):
+        r = rows[m[b, 0] : m[b, 0] + m[b, 1]][::-1]
+        for ch in range(3):
+            at = np.flatnonzero(sync[b, ch][r[:, ch]] >= 0)
+            hits[ch] += len(at)
+            longest[ch] = max(longest[ch], int(np.diff(np.concatenate(
+                [[0], at, [len(r)]])).max()))
+    return {"sync_share": dict(zip(("ll", "ml", "of"),
+                                   (hits / len(rows)).tolist())),
+            "longest_sync_free_run": dict(zip(("ll", "ml", "of"),
+                                              longest.tolist()))}
+
+
 def phase_zstd(dev, old=None):
     """The device zstd entropy stage. (a) decode_payloads_device on one
     batch of a grid of 2-3 block payloads: device frames of literals,
@@ -1236,8 +1356,9 @@ def phase_zstd(dev, old=None):
     encode_sequences and decoded back through K7. (d) K5, K6, K7 and X1
     against their plain versions on the calls of (a)-(c); K7 and X1 timed on
     the path's own call, the first 64 MiB chunk of the libzstd frame's
-    decode, and K5 on that chunk's call too (with old, load_old, beside the
-    old design's K5, in turns)."""
+    decode, and K5 on that chunk's call too; K6 on (c)'s 64 blocks, its
+    launch alone and as called, with the blocks' sync profile (with old,
+    load_old, K5 and K6 beside the old design's, in turns)."""
     res = {"launches": {}}
     err = {"fse_encode": 0, "seq_decode": 0, "seq_exec": 0,
            "huff_histogram": 0, "huff_encode_streams": 0,
@@ -1466,12 +1587,30 @@ def phase_zstd(dev, old=None):
     p, p_ms = timed(lambda: fse_kernel.encode_bitstreams_plain(*k6_args))
     err["fse_encode"] = zstd_exact("K6", k6_out, p)
     del p
+    # the launch alone on zeroed words (each timer's first call), and the
+    # wrapper as called (its word zeroing, meta and bits read back)
+    k6 = in_turns("K6 launch on 64 text blocks",
+                  k6_launch(fse_kernel, k6_args),
+                  old and k6_launch(old.fse_kernel, k6_args), 5)
+    k6c = in_turns("K6 as called on 64 text blocks",
+                   lambda: fse_kernel.encode_bitstreams(*k6_args),
+                   old and (lambda: old.fse_kernel.encode_bitstreams(
+                       *k6_args)), 5)
+    longest = int(k6_args[2][:, 1].max())
     times["fse_encode"] = {
-        "ms": cuda_ms(lambda: fse_kernel.encode_bitstreams(*k6_args), 5),
+        **k6, **{"called_" + k: v for k, v in k6c.items()},
         "plain_ms": p_ms,
         "bytes": (sum(a.numel() * a.element_size() for a in k6_args)
                   + int(k6_out[1].sum()) // 8 + 8 * nb),
-        "blocks": nb, "sequences": nseq_c}
+        "blocks": nb, "sequences": nseq_c, "longest_block": longest,
+        **k6_sync_profile(*k6_args)}
+    # the serial chains at K6_STEP_CYCLES a step: the longest block walked
+    # by one thread (one thread a block, or no sync point), and the longest
+    # sync-free run (the kernel's A2)
+    t6 = times["fse_encode"]
+    t6["chain_bound_ms"] = longest * K6_STEP_CYCLES / CLOCK_HZ * 1e3
+    t6["run_bound_ms"] = (max(t6["longest_sync_free_run"].values())
+                          * K6_STEP_CYCLES / CLOCK_HZ * 1e3)
     # K7 and X1 on every captured call, against the plain versions; the
     # libzstd frame's first chunk is timed
     k7_calls += [c["k7_call"] for c in cell.values()]
@@ -1533,7 +1672,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="chiprun_out/chip_smoke.json")
     ap.add_argument("--old-src", help="a checkout of an earlier commit: its "
-                    "K2/K2b, K4 and K5 kernels are timed beside these, in "
+                    "K2/K2b, K4, K5 and K6 kernels are timed beside these, in "
                     "turns")
     args = ap.parse_args()
     if not torch.cuda.is_available():

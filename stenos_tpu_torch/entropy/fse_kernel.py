@@ -11,7 +11,10 @@ of fse_pallas.py:82-88. A CUDA tensor goes through csrc/fse_encode.cu (it
 replaces the TPU kernel stenos_tpu/entropy/fse_pallas.py::make_fse_kernel),
 a CPU tensor through encode_bitstreams_plain: the state walks side by side,
 one step a sequence, then the chunks placed at the exclusive sum of their
-bit counts. The TPU kernel's bucket of at most 2560 sequences a block (a
+bit counts. The kernel cuts each block's walk into segments and breaks the
+state chains at sync points (sync_states: a symbol after which the state is
+the same from every state), so that many threads walk a block. The TPU
+kernel's bucket of at most 2560 sequences a block (a
 VMEM limit) is gone: every block encodes, and where the JAX entry point
 returns None the section here equals encode_sequences(seqs, reps=reps).
 
@@ -22,7 +25,9 @@ returns None the section here equals encode_sequences(seqs, reps=reps).
   meta  (nblk, 8) int64  seq_off, nseq (>= 1), word_off, word_cap, tl_ll,
                        tl_ml, tl_of, 0
   -> words (sum of word_cap,) int32, zero past each block's bits;
-     bits (nblk,) int64; on the input's device
+     bits (nblk,) int64; on the input's device. A block that needs more
+     than word_cap words has bits -1 and its first word_cap words written;
+     the wrapper raises on it.
 
 This entry point is the port's counterpart of the JAX package's; like it,
 nothing in frame.compress reaches it.
@@ -150,6 +155,29 @@ def pack_blocks(preps, device):
                  for a in (seqs, tabs, meta))
 
 
+def sync_states(tabs, meta):
+    """The kernel's sync rule, (nblk, 3, 64) int64: for each channel (LL,
+    ML, OF) and symbol, the next state after that symbol when its table
+    index (state >> nb) + dfs is the same from every state of the channel's
+    range [2^tl, 2^(tl+1)) ([0, 0] for an RLE channel, tl 0), else -1. The
+    test: nb = (state + dnb) >> 16 and state >> nb equal at both ends of the
+    range (nb is monotone in the state, and so is state >> nb for one nb).
+    In an FSE table it holds for the symbols of normalized count 1 or -1
+    (nb = tl, state >> nb = 1) and the absent ones."""
+    tl = meta[:, 4:7].long()
+    lo = torch.where(tl > 0, 1 << tl, 0)[:, :, None]
+    hi = torch.where(tl > 0, (2 << tl) - 1, 0)[:, :, None]
+    t = tabs.long()
+    dnb, dfs = t[:, :, :NSYM], t[:, :, NSYM : 2 * NSYM]
+    stt = t[:, :, 2 * NSYM :]
+    nl, nh = (lo + dnb) >> 16, (hi + dnb) >> 16
+    ok = (nl == nh) & (nl >= 0) & (nl < 16)
+    sh = nl.clamp(0, 15)
+    ok &= (lo >> sh) == (hi >> sh)
+    nxt = torch.gather(stt, 2, ((lo >> sh) + dfs).clamp(0, STT - 1))
+    return torch.where(ok, nxt, -1)
+
+
 def encode_bitstreams_plain(seqs, tabs, meta):
     """Plain torch version (see the module docstring)."""
     dev = seqs.device
@@ -211,12 +239,14 @@ def encode_bitstreams_plain(seqs, tabs, meta):
     incl = torch.cumsum(nbs, 1)
     off = incl - nbs
     sh = off & 31
+    need = (incl[:, -1] + 31) >> 5
     cap = int(meta[:, 3].max())
-    acc = torch.zeros((nb_, cap + 1), dtype=torch.int64, device=dev)
+    acc = torch.zeros((nb_, max(cap, int(need.max())) + 1),
+                      dtype=torch.int64, device=dev)
     acc.scatter_add_(1, off >> 5, (v << sh) & 0xFFFFFFFF)
     acc.scatter_add_(1, (off >> 5) + 1, v >> (32 - sh))
     acc = torch.where(acc >= 1 << 31, acc - (1 << 32), acc)
-    bits = incl[:, -1]
+    bits = torch.where(need > meta[:, 3], -1, incl[:, -1])
     keep = torch.arange(cap, device=dev) < meta[:, 3:4]
     words[...] = acc[:, :cap][keep].to(torch.int32)
     return words, bits
@@ -224,10 +254,29 @@ def encode_bitstreams_plain(seqs, tabs, meta):
 
 def encode_bitstreams(seqs, tabs, meta):
     """The wrapper: the CUDA kernel for CUDA tensors, the plain version for
-    CPU tensors (see the module docstring)."""
-    global launches
+    CPU tensors (see the module docstring). Raises when a block outgrows its
+    word_cap (RuntimeError), or holds what the kernel does not take
+    (ValueError, encode_bitstreams_cuda)."""
     if seqs.device.type == "cpu":
-        return encode_bitstreams_plain(seqs, tabs, meta)
+        words, bits = encode_bitstreams_plain(seqs, tabs, meta)
+    else:
+        words, bits = encode_bitstreams_cuda(seqs, tabs, meta)
+    low = int(bits.min()) if bits.numel() else 0
+    if low == -2:
+        raise ValueError("fse_encode: a table, code or state out of the "
+                         "kernel's range")
+    if low < 0:
+        raise RuntimeError("fse_encode: a block outgrew its word room")
+    return words, bits
+
+
+def encode_bitstreams_cuda(seqs, tabs, meta):
+    """The kernel's launch: words and bits as the plain version gives them
+    (bits -1 where a block outgrows word_cap), or bits -2 where a block
+    holds what the kernel does not take: an FSE table's states lie in
+    [2^tl, 2^(tl+1)) and its indexes in the table, tl <= 9, symbol codes
+    below 64 (offset codes below 32), extra-bit counts at most 32."""
+    global launches
     dev = seqs.device
     nb_ = meta.shape[0]
     for name, t, dtype, shape in (
@@ -240,6 +289,8 @@ def encode_bitstreams(seqs, tabs, meta):
                              f"contiguous {shape} {dtype} tensor on {dev}")
     if dev.type != "cuda":
         raise ValueError(f"encode_bitstreams: unsupported device {dev}")
+    if seqs.data_ptr() % 16:
+        raise ValueError("encode_bitstreams: seqs must be 16-byte aligned")
     words = torch.zeros(int(meta[:, 3].sum()) if nb_ else 0,
                         dtype=torch.int32, device=dev)
     bits = torch.zeros(nb_, dtype=torch.int64, device=dev)
@@ -250,8 +301,6 @@ def encode_bitstreams(seqs, tabs, meta):
             words.data_ptr(), bits.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream), "fse_encode")
         launches += 1
-        if bool((bits < 0).any()):
-            raise RuntimeError("fse_encode: a block outgrew its word room")
     return words, bits
 
 
