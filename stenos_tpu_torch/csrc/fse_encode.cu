@@ -46,7 +46,7 @@
 // reads them from the rows).
 //
 // Bound: on text blocks the longest sync-free run, walked serially in A2
-// (one dependent shared-memory load and five integer operations a step);
+// (one dependent shared-memory load and four integer operations a step);
 // the bytes (the rows and tables in, the bitstream out) take far less
 // (PERF.md).
 
@@ -125,16 +125,12 @@ __device__ __forceinline__ void init_states(const Smem& sm, uint32_t c,
 
 // one state step: nb, and the table index (B1 checks it lies in the table,
 // so the mask is the plain version's clamp)
-__device__ __forceinline__ int step(const int* stt, int s, int2 d, int& nb,
-                                    int& idx) {
+__device__ __forceinline__ int step(const int2* nbfs, const int* stt, int s,
+                                    int sym, int& nb, int& idx) {
+    const int2 d = nbfs[sym];
     nb = (s + d.x) >> 16;
     idx = (int)((uint32_t)s >> nb) + d.y;
     return stt[idx & (kStates - 1)];
-}
-
-__device__ __forceinline__ int step(const int2* nbfs, const int* stt, int s,
-                                    int sym, int& nb, int& idx) {
-    return step(stt, s, nbfs[sym], nb, idx);
 }
 
 __device__ __forceinline__ int step(const int2* nbfs, const int* stt, int s,
