@@ -81,10 +81,6 @@ ENCODE_OPS_PER_BYTE = 11
 # per-element body of csrc/decode_rows.cu (unpack shift and mask, the min or
 # the running sum, the carry, the store); the records come on top
 DECODE_OPS_PER_BYTE = 5
-# K6's chain: one state step's latency at least, a dependent shared-memory
-# load (~30 cycles) and five dependent integer operations (~4 cycles each);
-# NVIDIA publishes no latencies: an estimate
-K6_STEP_CYCLES = 50
 CLOCK_HZ = 1.98e9  # H100 SXM boost clock (data sheet)
 MIB = 1024 * 1024
 HEADLINE_MB = 512  # bench.py's headline size
@@ -461,26 +457,30 @@ def fse_seqs(rng, n):
                      rng.integers(3, 200, n)], 1)
 
 
+def no_sync_seqs(n):
+    """n sequences (an (n, 3) array) whose LL, ML and OF codes each take
+    four values in turn: uniform counts, so no code is a sync point and K6
+    walks each channel serially."""
+    i = np.arange(n)
+    return np.stack([i % 4, 16 << (i % 4), 3 + (i * 3) % 4], 1)
+
+
 def fse_grid(rng, dev, record):
     """K6 (the launch, encode_bitstreams_cuda) against its plain version on
     blocks built on the card: a block whose three channels have no sync
-    point (four codes each, uniform, offsets never repeats), an all-RLE
-    block, one sequence, 20 sequences (the predefined tables), and blocks
-    of 40,000 (past 0x7F00: the long nseq header; codes staged) and 60,000
-    sequences (past the kernel's 49,152: codes read from the rows), in one
-    batch; then a small batch with one block's word_cap a word short (bits
-    -1 and its first word_cap words; the wrapper raises RuntimeError), and a
-    table whose state leaves its range (the kernel's -2: the wrapper raises
-    ValueError)."""
-    i = np.arange(5000)
+    point (no_sync_seqs), an all-RLE block, one sequence, 20 sequences
+    (the predefined tables), and a block of 40,000 sequences (past 0x7F00:
+    the long nseq header; a zstd block holds at most 43,690), in one batch;
+    then a small batch with one block's word_cap a word short (bits -1 and
+    its first word_cap words; the wrapper raises RuntimeError), a table
+    whose state leaves its range and a block over the kernel's 49,152
+    sequences (the kernel's -2: the wrapper raises ValueError)."""
     blocks = {
-        "no_sync": (np.stack([i % 4, 16 << (i % 4), 3 + (i * 3) % 4], 1),
-                    FRESH_REPS),
+        "no_sync": (no_sync_seqs(5000), FRESH_REPS),
         "rle": (np.tile([[7, 64 + 3, 40]], (3000, 1)), (64, 4, 8)),
         "one": (np.array([[5, 1003, 30]]), FRESH_REPS),
         "predefined": (fse_seqs(rng, 20), FRESH_REPS),
-        "long_staged": (fse_seqs(rng, 40_000), FRESH_REPS),
-        "long_rows": (fse_seqs(rng, 60_000), FRESH_REPS)}
+        "long": (fse_seqs(rng, 40_000), FRESH_REPS)}
     preps = {k: fse_kernel.prep_block(sq, reps)[1]
              for k, (sq, reps) in blocks.items()}
     args = fse_kernel.pack_blocks(list(preps.values()), dev)
@@ -525,9 +525,20 @@ def fse_grid(rng, dev, record):
         check(False, "K6 took a state out of its range")
     except ValueError as e:
         check("range" in str(e), f"K6 bad table: {e}")
+    over = fse_kernel.pack_blocks(
+        [fse_kernel.prep_block(fse_seqs(rng, 49_153), FRESH_REPS)[1],
+         preps["one"]], dev)
+    b = fse_kernel.encode_bitstreams_cuda(*over)[1].tolist()
+    check(b[0] == -2 and b[1] > 0, f"K6 over 49,152 sequences: bits {b}")
+    try:
+        fse_kernel.encode_bitstreams(*over)
+        check(False, "K6 took a block over 49,152 sequences")
+    except ValueError as e:
+        check("49,152" in str(e), f"K6 long block: {e}")
     log("K6 == plain version on the card: no sync point, RLE, one sequence, "
-        "predefined tables, 40,000 and 60,000 sequences; a block a word "
-        "short (-1, the wrapper raises); a state out of range (raises)")
+        "predefined tables, 40,000 sequences; a block a word short (-1, the "
+        "wrapper raises); a state out of range and a block of 49,153 "
+        "sequences (-2, the wrapper raises)")
 
 
 def phase_frames(dev):
@@ -1319,6 +1330,18 @@ def k6_launch(mod, args):
     return fn
 
 
+def k6_step_cycles(dev, short=8192, long=32768):
+    """One serial K6 step in clock cycles (CLOCK_HZ), measured: the launch
+    alone on one block of no_sync_seqs, whose three channels are each
+    walked by one thread, at two lengths; the difference of the times over
+    the difference of the steps, so that the launch and the parallel
+    passes' fixed costs drop out."""
+    ms = [cuda_ms(k6_launch(fse_kernel, fse_kernel.pack_blocks(
+        [fse_kernel.prep_block(no_sync_seqs(n), FRESH_REPS)[1]], dev)), 5)
+        for n in (short, long)]
+    return (ms[1] - ms[0]) * 1e-3 * CLOCK_HZ / (long - short)
+
+
 def k6_sync_profile(seqs, tabs, meta):
     """Per channel (LL, ML, OF): the share of K6's sequences that are sync
     points (fse_kernel.sync_states), and the longest sync-free run in walk
@@ -1356,9 +1379,10 @@ def phase_zstd(dev, old=None):
     encode_sequences and decoded back through K7. (d) K5, K6, K7 and X1
     against their plain versions on the calls of (a)-(c); K7 and X1 timed on
     the path's own call, the first 64 MiB chunk of the libzstd frame's
-    decode, and K5 on that chunk's call too; K6 on (c)'s 64 blocks, its
-    launch alone and as called, with the blocks' sync profile (with old,
-    load_old, K5 and K6 beside the old design's, in turns)."""
+    decode, and K5 on that chunk's call too; K6 on (c)'s 64 blocks as
+    called and its launch alone, with the blocks' sync profile and one
+    serial step measured (k6_step_cycles) (with old, load_old, K5 and K6
+    beside the old design's, in turns)."""
     res = {"launches": {}}
     err = {"fse_encode": 0, "seq_decode": 0, "seq_exec": 0,
            "huff_histogram": 0, "huff_encode_streams": 0,
@@ -1587,30 +1611,32 @@ def phase_zstd(dev, old=None):
     p, p_ms = timed(lambda: fse_kernel.encode_bitstreams_plain(*k6_args))
     err["fse_encode"] = zstd_exact("K6", k6_out, p)
     del p
-    # the launch alone on zeroed words (each timer's first call), and the
-    # wrapper as called (its word zeroing, meta and bits read back)
-    k6 = in_turns("K6 launch on 64 text blocks",
-                  k6_launch(fse_kernel, k6_args),
-                  old and k6_launch(old.fse_kernel, k6_args), 5)
-    k6c = in_turns("K6 as called on 64 text blocks",
-                   lambda: fse_kernel.encode_bitstreams(*k6_args),
-                   old and (lambda: old.fse_kernel.encode_bitstreams(
-                       *k6_args)), 5)
+    # ms: the wrapper as a caller runs it (the words zeroed, the launch,
+    # bits read back), as the other kernels are timed; launch_ms: the
+    # launch alone on words zeroed once (k6_launch)
+    k6 = in_turns("K6 on 64 text blocks",
+                  lambda: fse_kernel.encode_bitstreams(*k6_args),
+                  old and (lambda: old.fse_kernel.encode_bitstreams(
+                      *k6_args)), 5)
+    k6l = in_turns("K6's launch on 64 text blocks",
+                   k6_launch(fse_kernel, k6_args),
+                   old and k6_launch(old.fse_kernel, k6_args), 5,
+                   timers=(("launch_ms", cuda_ms),))
     longest = int(k6_args[2][:, 1].max())
     times["fse_encode"] = {
-        **k6, **{"called_" + k: v for k, v in k6c.items()},
-        "plain_ms": p_ms,
+        **k6, **k6l, "plain_ms": p_ms,
         "bytes": (sum(a.numel() * a.element_size() for a in k6_args)
                   + int(k6_out[1].sum()) // 8 + 8 * nb),
         "blocks": nb, "sequences": nseq_c, "longest_block": longest,
         **k6_sync_profile(*k6_args)}
-    # the serial chains at K6_STEP_CYCLES a step: the longest block walked
-    # by one thread (one thread a block, or no sync point), and the longest
-    # sync-free run (the kernel's A2)
+    # the serial chains at the step measured here (k6_step_cycles): the
+    # longest block walked by one thread (one thread a block, or no sync
+    # point), and the longest sync-free run (the kernel's A2)
     t6 = times["fse_encode"]
-    t6["chain_bound_ms"] = longest * K6_STEP_CYCLES / CLOCK_HZ * 1e3
+    t6["step_cycles"] = k6_step_cycles(dev)
+    t6["chain_bound_ms"] = longest * t6["step_cycles"] / CLOCK_HZ * 1e3
     t6["run_bound_ms"] = (max(t6["longest_sync_free_run"].values())
-                          * K6_STEP_CYCLES / CLOCK_HZ * 1e3)
+                          * t6["step_cycles"] / CLOCK_HZ * 1e3)
     # K7 and X1 on every captured call, against the plain versions; the
     # libzstd frame's first chunk is timed
     k7_calls += [c["k7_call"] for c in cell.values()]

@@ -41,9 +41,10 @@
 //   B2  walk again and emit through a 64-bit accumulator: plain stores for
 //       the words the thread owns, atomicOr for its first and last, which it
 //       shares with its neighbours (the caller zeroes the words).
-// Tables, the sync table, exit states and bit counts live in shared memory,
-// the packed codes too up to kStage sequences a block (above that each pass
-// reads them from the rows).
+// Tables, the sync table, exit states, bit counts and the packed codes live
+// in shared memory. A block holds at most kStage sequences (else -2): a zstd
+// block of 128 KiB holds at most 43,690 (three bytes a sequence at least),
+// the most encode_sequences_device_batch is given for one.
 //
 // Bound: on text blocks the longest sync-free run, walked serially in A2
 // (one dependent shared-memory load and four integer operations a step);
@@ -68,8 +69,7 @@ constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMinSeg = 8;     // steps a segment at least
 constexpr int kChunk = 8;      // steps of A2's walk a table load ahead
-constexpr int kStage = 49152;  // sequences whose codes shared memory holds
-constexpr int kMaxSeqs = 1 << 30;  // sequences a block at most (else -2)
+constexpr int kStage = 49152;  // sequences a block at most (else -2)
 constexpr long long kOverCap = -1;   // bits_out: more words than word_cap
 constexpr long long kBadInput = -2;  // bits_out: an input out of range
 
@@ -139,15 +139,6 @@ __device__ __forceinline__ int step(const int2* nbfs, const int* stt, int s,
     return step(nbfs, stt, s, sym, nb, idx);
 }
 
-// step t's codes: staged, or packed from its row
-template <bool kStaged>
-__device__ __forceinline__ uint32_t code_at(const Smem& sm, const int* sq,
-                                            int n, int t) {
-    bool unused = false;
-    return kStaged ? sm.code[t] : pack(sq + (long long)(n - 1 - t) * kCols,
-                                       unused);
-}
-
 // one step of A2's walk: nb = (s + dnb) >> 16, then one shared load at
 // (s >> nb) * 4 + the address of stt_a2 + 4 dfs: four integer operations
 __device__ __forceinline__ int a2_step(int s, int2 d) {
@@ -165,9 +156,8 @@ __device__ __forceinline__ int a2_step(int s, int2 d) {
 // kChunk, so a chunk ends at most one segment and the block. The channel
 // is a value, not a template argument: a warp's runs of all three channels
 // walk in step.
-template <bool kStaged>
-__device__ __forceinline__ void walk_run(Smem& sm, const int* sq, int n,
-                                         int L, int S, int ch, int j) {
+__device__ __forceinline__ void walk_run(Smem& sm, int n, int L, int S,
+                                         int ch, int j) {
     const int2* a2 = sm.a2[ch];
     int s = sm.exit_state[ch][j - 1] & 1023;
     int end = min(n, (j + 1) * L);
@@ -175,14 +165,11 @@ __device__ __forceinline__ void walk_run(Smem& sm, const int* sq, int n,
     int2 d[kChunk], next[kChunk];
 #pragma unroll
     for (int k = 0; k < kChunk; ++k)
-        d[k] = a2[sym_of(code_at<kStaged>(sm, sq, n, min(j * L + k, n - 1)),
-                         ch)];
+        d[k] = a2[sym_of(sm.code[min(j * L + k, n - 1)], ch)];
     for (int t = j * L;; t += kChunk) {
 #pragma unroll
         for (int k = 0; k < kChunk; ++k)
-            next[k] = a2[sym_of(code_at<kStaged>(sm, sq, n,
-                                                 min(t + kChunk + k, n - 1)),
-                                ch)];
+            next[k] = a2[sym_of(sm.code[min(t + kChunk + k, n - 1)], ch)];
         int at_end = 0, at_n = 0;
 #pragma unroll
         for (int k = 0; k < kChunk; ++k) {
@@ -241,8 +228,7 @@ __device__ __forceinline__ void put_extras(Emit& out, const int* row,
     out.put((uint32_t)__ldg(row + 5), (c >> 12) & 63);
 }
 
-// one block (one CTA); kStaged: its codes fit in shared memory
-template <bool kStaged>
+// one block (one CTA)
 __device__ __forceinline__ void encode_block(
         Smem& sm, const int* sq, const long long* m, int n, int* words,
         long long* bits_out) {
@@ -277,8 +263,7 @@ __device__ __forceinline__ void encode_block(
     if (tid < S) {
 #pragma unroll 4
         for (int t = a; t < e; ++t) {
-            const uint32_t c = pack(sq + (long long)(n - 1 - t) * kCols, bad);
-            if (kStaged) sm.code[t] = c;
+            sm.code[t] = pack(sq + (long long)(n - 1 - t) * kCols, bad);
         }
     }
     __syncthreads();
@@ -286,7 +271,7 @@ __device__ __forceinline__ void encode_block(
         int s[3] = {0, 0, 0};
         bool known[3] = {false, false, false};
         for (int t = a; t < e; ++t) {
-            const uint32_t c = code_at<kStaged>(sm, sq, n, t);
+            const uint32_t c = sm.code[t];
             for (int ch = 0; ch < 3; ++ch) {
                 const int sym = sym_of(c, ch);
                 if (t == 0) {
@@ -313,8 +298,7 @@ __device__ __forceinline__ void encode_block(
     }
     __syncthreads();
     for (int r = tid; r < sm.nrun; r += kThreads) {
-        walk_run<kStaged>(sm, sq, n, L, S, sm.run[r] / kThreads,
-                          sm.run[r] % kThreads);
+        walk_run(sm, n, L, S, sm.run[r] / kThreads, sm.run[r] % kThreads);
     }
     __syncthreads();
     // B1: count the segment's bits from its entry states, checking them
@@ -323,7 +307,7 @@ __device__ __forceinline__ void encode_block(
     if (tid < S) {
         int t = a;
         if (t == 0) {  // step 0: the initial states, the last extra bits
-            const uint32_t c = code_at<kStaged>(sm, sq, n, 0);
+            const uint32_t c = sm.code[0];
             init_states(sm, c, s);
             seg += extra_bits(c);
             ++t;
@@ -332,7 +316,7 @@ __device__ __forceinline__ void encode_block(
         }
 #pragma unroll 2
         for (; t < e; ++t) {
-            const uint32_t c = code_at<kStaged>(sm, sq, n, t);
+            const uint32_t c = sm.code[t];
             for (int ch = 0; ch < 3; ++ch) {
                 int nb, idx;
                 bad |= s[ch] < lo[ch] || s[ch] > hi[ch];
@@ -380,7 +364,7 @@ __device__ __forceinline__ void encode_block(
              (int)(off & 31), (off & 31) != 0};
     int t = a;
     if (t == 0) {
-        const uint32_t c = code_at<kStaged>(sm, sq, n, 0);
+        const uint32_t c = sm.code[0];
         init_states(sm, c, s);
         put_extras(out, sq + (long long)(n - 1) * kCols, c);
         ++t;
@@ -389,7 +373,7 @@ __device__ __forceinline__ void encode_block(
     }
 #pragma unroll 2
     for (; t < e; ++t) {
-        const uint32_t c = code_at<kStaged>(sm, sq, n, t);
+        const uint32_t c = sm.code[t];
         for (int ch = 2; ch >= 0; --ch) {  // OF, ML, LL
             int nb, idx;
             const int st = s[ch];
@@ -416,7 +400,7 @@ fse_encode(const int* __restrict__ seqs, const int* __restrict__ tabs,
     const long long blk = blockIdx.x;
     const long long* m = meta + blk * kMeta;
     const long long n = m[1];
-    if (n <= 0 || n > kMaxSeqs) {
+    if (n <= 0 || n > kStage) {
         if (threadIdx.x == 0) bits_out[blk] = n <= 0 ? 0 : kBadInput;
         return;
     }
@@ -440,10 +424,7 @@ fse_encode(const int* __restrict__ seqs, const int* __restrict__ tabs,
     if (threadIdx.x == 0) sm.bad = sm.nrun = 0;
     __syncthreads();
     const int* sq = seqs + m[0] * kCols;
-    if (n <= kStage)
-        encode_block<true>(sm, sq, m, (int)n, words, bits_out + blk);
-    else
-        encode_block<false>(sm, sq, m, (int)n, words, bits_out + blk);
+    encode_block(sm, sq, m, (int)n, words, bits_out + blk);
 }
 
 }  // namespace
@@ -454,8 +435,9 @@ fse_encode(const int* __restrict__ seqs, const int* __restrict__ tabs,
 // words at each block's word_off (zeroed) and bits (nblk,) int64: a block's
 // bit count, -1 when it needs more than word_cap words (the first word_cap
 // are written), -2 when a code, a bit count, a table_log or a state lies out
-// of range. The launch goes on `stream`; the return value is the first CUDA
-// error of the call (0 when none).
+// of range or the block holds more than 49,152 sequences. The launch goes on
+// `stream`; the return value is the first CUDA error of the call (0 when
+// none).
 extern "C" int stenos_fse_encode(const void* seqs, const void* tabs,
                                  const void* meta, long long nblk, void* words,
                                  void* bits, void* stream) {

@@ -15,7 +15,8 @@ bit counts. The kernel cuts each block's walk into segments and breaks the
 state chains at sync points (sync_states: a symbol after which the state is
 the same from every state), so that many threads walk a block. The TPU
 kernel's bucket of at most 2560 sequences a block (a
-VMEM limit) is gone: every block encodes, and where the JAX entry point
+VMEM limit) is gone: the kernel takes up to 49,152 sequences a block (a
+zstd block of 128 KiB holds at most 43,690), and where the JAX entry point
 returns None the section here equals encode_sequences(seqs, reps=reps).
 
   seqs  (N, 8) int32   per sequence, natural order: ll_sym, ml_sym, of_sym,
@@ -264,7 +265,8 @@ def encode_bitstreams(seqs, tabs, meta):
     low = int(bits.min()) if bits.numel() else 0
     if low == -2:
         raise ValueError("fse_encode: a table, code or state out of the "
-                         "kernel's range")
+                         "kernel's range, or a block over 49,152 "
+                         "sequences")
     if low < 0:
         raise RuntimeError("fse_encode: a block outgrew its word room")
     return words, bits
@@ -275,7 +277,8 @@ def encode_bitstreams_cuda(seqs, tabs, meta):
     (bits -1 where a block outgrows word_cap), or bits -2 where a block
     holds what the kernel does not take: an FSE table's states lie in
     [2^tl, 2^(tl+1)) and its indexes in the table, tl <= 9, symbol codes
-    below 64 (offset codes below 32), extra-bit counts at most 32."""
+    below 64 (offset codes below 32), extra-bit counts at most 32, at
+    most 49,152 sequences a block."""
     global launches
     dev = seqs.device
     nb_ = meta.shape[0]

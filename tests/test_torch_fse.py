@@ -16,6 +16,8 @@ import torch
 
 from stenos_tpu.entropy.fse_pallas import \
     encode_sequences_device_batch as ref_fse_batch
+from stenos_tpu.entropy.sequences import \
+    encode_sequences as ref_encode_sequences
 from stenos_tpu_torch import native
 from stenos_tpu_torch.entropy import fse_kernel
 from stenos_tpu_torch.entropy.fse import FseEncoder
@@ -306,15 +308,19 @@ def test_segmented_walk_equals_plain(cases, seg_len):
 
 
 def test_plain_sections_equal_encode_sequences(cases):
-    """The plain version's sections equal encode_sequences."""
+    """Within word_cap the plain version's sections equal encode_sequences,
+    the port's and the JAX package's host encoder: its report of a block
+    over word_cap (bits -1) changes nothing below it."""
     names, packed, words, bits, reps, blocks = cases
     meta = packed[2].numpy()
     w = words.numpy().astype("<u4")
+    assert (bits > 0).all()
     for j, name in enumerate(names):
         prefix = fse_kernel.prep_block(blocks[name], reps)[0]
         body = w[meta[j, 2] : meta[j, 2] + meta[j, 3]].tobytes()
         sec = prefix + body[: (int(bits[j]) + 7) // 8]
         assert sec == encode_sequences(blocks[name], reps=reps), name
+        assert sec == ref_encode_sequences(blocks[name], reps=reps), name
 
 
 def test_capacity_report(text_blocks):
