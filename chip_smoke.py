@@ -14,6 +14,14 @@ numpy host path, then drives the main path -- compress / decompress of 512
 MiB of sorted int32 (bytesoftype 4) at levels 1 and 2, each decompress
 exactly one K2 launch a 64 MiB batch, then a second decompress split by
 step (host pass, copies, K2, copy into the output) -- and the
+context phase (phase_context) on the same 512 MiB: time-limited
+compress_generic after Context.warmup at 25%, 100% and 400% of this run's
+level-1 compress time (each within 1.35x + 250 ms of its budget, decoded
+exactly), compress_generic without a limit (the level-1 frame), threads=1
+and 4 at levels 1 and 2, engine="auto" at 1, 4 and 16 MiB (the route and
+both routes' times) and CompressedArray on 64 MiB at block_shift=4 and 4
+MiB at block_shift=0 (build, to_numpy, 10,000 reads, serialize() equal to
+the host path's; a K1 and a K2 launch a chunk); then the
 device-resident paths on the same 512 MiB: roundtrip_device,
 DeviceCompressedArray (build, reads, serialize, deserialize) and
 compress_frame_device; K2 and K2b timed at their paths' shapes beside
@@ -85,6 +93,8 @@ CLOCK_HZ = 1.98e9  # H100 SXM boost clock (data sheet)
 MIB = 1024 * 1024
 HEADLINE_MB = 512  # bench.py's headline size
 TEXT_MB = 512  # the text cell: 4096 superblocks of 128 KiB
+CONTAINER_MB = 64  # CompressedArray at block_shift=4: 4096 chunks of 16 KiB
+CONTAINER_READS = 10_000  # random element reads of each container
 TEXT_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "benchs",
                          "data", "code_text.txt")
 KINDS = ("sorted", "random", "same", "rle", "smallrange")
@@ -691,6 +701,249 @@ def phase_timing(dev, raw, frame1, frame2):
             for k, v in t.items()))
     log(f"kernels == plain versions at the main path's shapes: {err}")
     return out, err
+
+
+def timed_s(fn):
+    """(fn(), its host wall time in s, the card synchronized after)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def median_s(fn, n=3):
+    """(fn()'s last result, the median of n host wall times in s)."""
+    runs = [timed_s(fn) for _ in range(n)]
+    return runs[-1][0], float(np.median([t for _, t in runs]))
+
+
+def filled(v, vals):
+    """The container v after v.extend(vals)."""
+    v.extend(vals)
+    return v
+
+
+class Rounds:
+    """Counts an engine's encode_batch calls (the timed rounds that encode;
+    memcpy rounds make none) by wrapping the instance's method."""
+
+    def __init__(self, engine):
+        self.n, real = 0, engine.encode_batch
+
+        def count(*a, **k):
+            self.n += 1
+            return real(*a, **k)
+
+        engine.encode_batch = count
+
+
+def phase_context(dev, raw, frame1, level1_s):
+    """This slice's entry points on the card, each path with the launch
+    counts set to 0 just before it and read just after: (a) time-limited
+    compress_generic of the headline's 512 MiB after Context.warmup, at
+    25%, 100% and 400% of the untimed level-1 compress time of this run
+    (level1_s), each within 1.35x + 250 ms of its budget and decoded
+    exactly; (b) compress_generic without a limit, equal to the headline's
+    level-1 frame; (c) threads=1 and threads=4 at levels 1 and 2, the
+    threaded frames decoded exactly; (d) engine="auto" at 1, 4 and 16 MiB:
+    the route it takes, and compress and decompress on the host path and
+    on the card; (e) CompressedArray on CONTAINER_MB of sorted int32 at
+    block_shift=4 and on 1 Mi elements at block_shift=0: build, to_numpy,
+    CONTAINER_READS random reads, serialize() equal to the host-path
+    container's, each chunk one K1 launch to encode and one K2 launch to
+    decode; K1 and K2 held against their plain versions on a chunk."""
+    res = {"launches": {}}
+    err = {"encode_blocks": 0, "decode_rows": 0}
+
+    # (a) time-limited compress
+    t0 = time.perf_counter()
+    stt.Context(max_nanoseconds=1).warmup(4, len(raw),
+                                          block_levels=(0, 1, 2))
+    res["warmup_s"] = time.perf_counter() - t0
+    timed_res = res["timed"] = {}
+    for pct in (25, 100, 400):
+        budget_ns = int(level1_s * pct / 100 * 1e9)
+        ctx = stt.Context(max_nanoseconds=budget_ns)
+        rounds = Rounds(ctx.engine)
+        reset_counts()
+        t0 = time.perf_counter_ns()
+        frame = stt.compress_generic(ctx, raw, 4)
+        elapsed = time.perf_counter_ns() - t0
+        lc = read_counts()
+        reset_counts()
+        back, dec_s = timed_s(lambda: stt.decompress(frame, 4, device=dev))
+        ld = read_counts()
+        exact = bool(np.array_equal(back, raw))
+        del back
+        bound_ns = budget_ns * 1.35 + 250_000_000
+        r = timed_res[f"{pct}%"] = {
+            "budget_ms": budget_ns / 1e6, "elapsed_ms": elapsed / 1e6,
+            "overshoot_ms": (elapsed - budget_ns) / 1e6,
+            "bound_ms": bound_ns / 1e6, "encode_rounds": rounds.n,
+            "ratio": len(raw) / len(frame), "round_trip_exact": exact,
+            "unsatisfiable": ctx.t.unsatisfiable,
+            "decompress_s": dec_s, "launches": lc, "decompress_launches": ld}
+        res["launches"][f"timed_{pct}"] = lc
+        res["launches"][f"timed_{pct}_decompress"] = ld
+        log(f"timed {len(raw) // MIB} MiB at {pct}% of level 1's "
+            f"{level1_s * 1e3:.1f} ms: budget {r['budget_ms']:.1f} ms, "
+            f"elapsed {r['elapsed_ms']:.1f} ms (overshoot "
+            f"{r['overshoot_ms']:.1f}, bound {r['bound_ms']:.1f}), "
+            f"{rounds.n} encode rounds, K1 x{lc['encode_blocks']}, ratio "
+            f"{r['ratio']:.4f}, round trip {'exact' if exact else 'WRONG'}")
+        check(exact, f"timed {pct}%: round trip")
+        check(elapsed < bound_ns, f"timed {pct}%: {elapsed / 1e6:.1f} ms "
+              f"past the bound of {bound_ns / 1e6:.1f} ms")
+        del frame
+
+    # (b) compress_generic without a limit
+    reset_counts()
+    f, s = timed_s(lambda: stt.compress_generic(stt.Context(level=1), raw, 4))
+    res["launches"]["generic"] = read_counts()
+    check(f == frame1, "compress_generic differs from compress")
+    res["generic_s"] = s
+    log(f"compress_generic, no limit: {s:.3f} s, frame == compress's")
+    del f
+
+    # (c) threads
+    thr = res["threads"] = {}
+    for level in (1, 2):
+        for n in (1, 4):
+            reset_counts()
+            f, s = timed_s(lambda: stt.compress(raw, 4, level, threads=n))
+            lc = read_counts()
+            back, ds = timed_s(lambda: stt.decompress(f, 4))
+            exact = bool(np.array_equal(back, raw))
+            del back
+            thr[f"level{level}_threads{n}"] = {
+                "compress_s": s, "compress_gbps": len(raw) / s / 1e9,
+                "ratio": len(raw) / len(f), "decompress_s": ds,
+                "round_trip_exact": exact, "launches": lc}
+            res["launches"][f"threads{n}_level{level}"] = lc
+            log(f"threads={n} level {level}: compress {s:.3f} s = "
+                f"{len(raw) / s / 1e9:.4f} GB/s, ratio "
+                f"{len(raw) / len(f):.4f}, round trip "
+                f"{'exact' if exact else 'WRONG'}")
+            check(exact, f"threads={n} level {level}: round trip")
+            del f
+
+    # (d) engine="auto": the route, and both routes' times (the card's and
+    # the decompresses' the median of 3, in turns)
+    auto = res["auto"] = {}
+    for mb in (1, 4, 16):
+        data = raw[: mb * MIB]
+        host_f, hc = timed_s(lambda: stt.compress(data, 4, 1, engine=None))
+        card_f, cc = median_s(lambda: stt.compress(data, 4, 1, device=dev))
+        reset_counts()
+        auto_f, ac = timed_s(lambda: stt.compress(data, 4, 1, engine="auto"))
+        c_route = "card" if read_counts()["encode_blocks"] else "host"
+        check(host_f == card_f == auto_f, f"auto {mb} MiB: frames differ")
+        hd, cd = [], []
+        for _ in range(3):
+            hd.append(timed_s(lambda: stt.decompress(host_f, 4,
+                                                     engine=None))[1])
+            cd.append(timed_s(lambda: stt.decompress(host_f, 4,
+                                                     device=dev))[1])
+        hd, cd = float(np.median(hd)), float(np.median(cd))
+        reset_counts()
+        back, ad = timed_s(lambda: stt.decompress(host_f, 4, engine="auto"))
+        d_route = "card" if read_counts()["decode_rows"] else "host"
+        check(np.array_equal(back, data), f"auto {mb} MiB: round trip")
+        auto[f"{mb}MiB"] = {
+            "frame_bytes": len(host_f), "compress_route": c_route,
+            "decompress_route": d_route, "compress_host_s": hc,
+            "compress_card_s": cc, "compress_auto_s": ac,
+            "decompress_host_s": hd, "decompress_card_s": cd,
+            "decompress_auto_s": ad}
+        log(f"auto {mb} MiB: compress -> {c_route} (host {hc * 1e3:.1f} ms, "
+            f"card {cc * 1e3:.1f} ms), decompress of {len(host_f)} B -> "
+            f"{d_route} (host {hd * 1e3:.1f} ms, card {cd * 1e3:.1f} ms)")
+
+    # (e) CompressedArray
+    cont = res["container"] = {}
+    rng = np.random.default_rng(5)
+    for name, shift, nbytes in (("shift4", 4, CONTAINER_MB * MIB),
+                                ("shift0", 0, 4 * MIB)):
+        vals = raw[:nbytes].view(np.int32)
+        c = {"elements": len(vals), "block_shift": shift}
+        reset_counts()
+        v, c["build_s"] = timed_s(lambda: filled(
+            stt.CompressedArray(np.int32, block_shift=shift), vals))
+        c["launches_build"] = lb = read_counts()
+        res["launches"][f"container_{name}_build"] = lb
+        c["chunks"] = len(v._buckets)
+        reset_counts()
+        out, c["to_numpy_s"] = timed_s(v.to_numpy)
+        c["launches_to_numpy"] = lt = read_counts()
+        res["launches"][f"container_{name}_to_numpy"] = lt
+        check(np.array_equal(out, vals), f"container {name}: to_numpy")
+        idx = rng.integers(0, len(vals), CONTAINER_READS)
+        reset_counts()
+        got, c["reads_s"] = timed_s(lambda: [v[int(i)] for i in idx])
+        c["launches_reads"] = lr = read_counts()
+        res["launches"][f"container_{name}_reads"] = lr
+        check(np.array_equal(np.array(got, np.int32), vals[idx]),
+              f"container {name}: random reads")
+        reset_counts()
+        blob, c["serialize_s"] = timed_s(v.serialize)
+        res["launches"][f"container_{name}_serialize"] = read_counts()
+        host, c["host_build_serialize_s"] = timed_s(lambda: filled(
+            stt.CompressedArray(np.int32, block_shift=shift, engine=None),
+            vals).serialize())
+        check(blob == host, f"container {name}: serialize() differs from "
+              "the host path's")
+        c["serialize_bytes"] = len(blob)
+        c["ratio"] = vals.nbytes / len(blob)
+        check(lb["encode_blocks"] > 0 and lt["decode_rows"] > 0
+              and lr["decode_rows"] > 0, f"container {name}: K1 or K2 did "
+              f"not run: {lb} {lt} {lr}")
+        # one chunk: K1 and K2 against their plain versions, and the cost
+        # of a chunk through the engine (host clock, median of 50)
+        chunk = np.ascontiguousarray(vals[: v.chunk_elems]).view(np.uint8)
+        x = torch.from_numpy(chunk.copy()).to(dev).view(1, -1)
+        err["encode_blocks"] = max(err["encode_blocks"], encode_err(
+            encode_kernel.encode_superblocks(x, 4, 2),
+            encode_kernel.encode_superblocks_plain(x, 4, 2)))
+        rec = v._buckets[0].compressed
+        check(rec[0] == 1, "container chunk 0 is not METHOD_BLOCK")
+        vb, po, rt, _ = native.load().parse_rows(rec[4:], 4, len(chunk))
+        a = [torch.from_numpy(t).to(dev) for t in (vb, po, rt)]
+        nb = len(chunk) // 1024
+        err["decode_rows"] = max(err["decode_rows"], decode_err(
+            decode_kernel.decode_rows(*a, 4, nb),
+            decode_kernel.decode_rows_plain(*a, 4, nb)))
+        e = v.engine
+        enc, dec = [], []
+        for _ in range(50):
+            t0 = time.perf_counter()
+            e.encode_block_stream(chunk, 4, len(chunk))
+            t1 = time.perf_counter()
+            e.decode_block_stream(rec[4:], 4, len(chunk))
+            t2 = time.perf_counter()
+            enc.append(t1 - t0)
+            dec.append(t2 - t1)
+        c["chunk_encode_ms"] = float(np.median(enc)) * 1e3
+        c["chunk_decode_ms"] = float(np.median(dec)) * 1e3
+        c["k1_chunk_ms"] = cuda_ms(
+            lambda: encode_kernel.encode_superblocks(x, 4, 2), 20)
+        c["k2_chunk_ms"] = queued_ms(
+            lambda: decode_kernel.decode_rows(*a, 4, nb), 20)
+        cont[name] = c
+        log(f"container {name}: {len(vals)} int32 in {c['chunks']} chunks, "
+            f"build {c['build_s']:.3f} s (K1 x{lb['encode_blocks']}), "
+            f"to_numpy {c['to_numpy_s']:.3f} s (K2 x{lt['decode_rows']}), "
+            f"{CONTAINER_READS} reads {c['reads_s']:.3f} s (K2 "
+            f"x{lr['decode_rows']}), serialize() == host path's "
+            f"(ratio {c['ratio']:.4f}; the host container "
+            f"{c['host_build_serialize_s']:.3f} s); a chunk through the "
+            f"engine: encode {c['chunk_encode_ms']:.3f} ms, decode "
+            f"{c['chunk_decode_ms']:.3f} ms (K1 {c['k1_chunk_ms']:.4f}, K2 "
+            f"{c['k2_chunk_ms']:.4f} ms on the card)")
+        del v, out, blob, host
+    check(max(err.values()) == 0, f"K1 or K2 differ from their plain "
+          f"versions on a container chunk: {err}")
+    return res, err
 
 
 def in_chunks(fn, row_args, *rest, per=CHUNK_BYTES // (128 * 1024)):
@@ -1715,6 +1968,11 @@ def main():
     log(f"  [{time.perf_counter() - t0:.1f} s]")
     times, err = phase_timing(dev, raw, res[1]["frame"], res[2]["frame"])
     log(f"  [{time.perf_counter() - t0:.1f} s]")
+    cres, err_ctx = phase_context(dev, raw, res[1]["frame"],
+                                  res[1]["compress_s"])
+    log(f"  [{time.perf_counter() - t0:.1f} s]")
+    for name, e in err_ctx.items():
+        err[name] = max(err[name], e)
     dres, times_dev, err_dev = phase_device(dev, raw, res[1]["frame"])
     log(f"  [{time.perf_counter() - t0:.1f} s]")
     times.update(times_dev)
@@ -1741,8 +1999,11 @@ def main():
     for name, e in err_z.items():
         err[name] = max(err.get(name, 0), e)
 
-    # (source, TPU kernel it replaces, launches on its own path, by path)
-    by_level = {f"level {lvl}": r["launches"] for lvl, r in res.items()}
+    # (source, TPU kernel it replaces, launches on its own path, by path);
+    # K1 and K2 also run on the context phase's paths (timed, generic,
+    # threads, auto, the container's chunks)
+    by_level = {f"level {lvl}": r["launches"]
+                for lvl, r in res.items()} | cres["launches"]
     dl = dres["launches"]
     # K3, K4 and K5 also run on the zstd stage's paths
     huff_paths = {**eres["launches"], **zres["launches"]}
@@ -1799,7 +2060,8 @@ def main():
     record = {"card": card, "device": device, "headline_mb": HEADLINE_MB,
               "headline": {lvl: {k: v for k, v in r.items() if k != "frame"}
                            for lvl, r in res.items()},
-              "device_paths": dres, "entropy": eres, "zstd": zres,
+              "device_paths": dres, "context": cres, "entropy": eres,
+              "zstd": zres,
               "timing": times,
               "kernels": kernels}
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)

@@ -3,11 +3,18 @@ kernels for NVIDIA Hopper, format-compatible with the C++ `stenos` library
 and byte-identical to the `stenos_tpu` package it is ported from.
 
 `compress` / `decompress` run on the CUDA card by default (a TorchEngine on
-"cuda"; they raise when there is none). `compress(..., entropy="device")`
-runs the zstd stage's entropy coder on the card, and `decompress` decodes
-zstd payloads there, libzstd's included. `device="cpu"` runs the same engine
-on the CPU through the kernels' plain torch versions; `engine=None` takes
-the numpy host path, the parity oracle.
+"cuda"; they raise when there is none), and so do `Context` and
+`CompressedArray`. `compress(..., entropy="device")` runs the zstd stage's
+entropy coder on the card, and `decompress` decodes zstd payloads there,
+libzstd's included. `device="cpu"` runs the same engine on the CPU through
+the kernels' plain torch versions; `engine=None` takes the numpy host path,
+the parity oracle; `engine="auto"` takes the card for inputs of 4 MiB (a
+frame of 1 MiB) and more and the host path below. `compress(...,
+threads=n)` compresses superblocks on n host threads.
+
+`Context` drives `compress_generic` / `decompress_generic`, the
+time-limited mode (`max_nanoseconds`) included; `CompressedArray` is the
+cvector equivalent, one superblock record a chunk; `Timer` is stenos_timer.
 
 `DeviceCompressedArray` keeps an array compressed in device memory, with an
 optional Huffman entropy stage (entropy=True), and decodes slabs on demand; `engine.roundtrip_device` and
@@ -16,40 +23,36 @@ compress.
 """
 
 from .constants import compress_bound, super_block_size
+from .container import CompressedArray
+from .context import Context
 from .device_container import DeviceCompressedArray
-from .frame import StenosError, get_info
+from .engine import DEFAULT as _DEFAULT
+from .engine import resolve as _engine
+from .frame import StenosError, compress_generic, decompress_generic, get_info
+from .utils.timer import Timer
 from . import frame as _frame
 
 __version__ = "0.1.0"
-
-_DEFAULT = object()
 
 
 def default_engine(device=None):
     """The engine the entry points use: a TorchEngine on `device`
     ("cuda" unless given). Raises when CUDA is asked for and absent."""
-    from .engine import TorchEngine
-
-    return TorchEngine("cuda" if device is None else device)
-
-
-def _engine(engine, device):
-    if engine is _DEFAULT:
-        return default_engine(device)
-    if device is not None:
-        raise ValueError("pass either engine= or device=, not both")
-    return engine
+    return _engine(_DEFAULT, device)
 
 
 def compress(data, bytesoftype: int, level: int = 1, dst_size=None,
              engine=_DEFAULT, device=None, custom_shift=None,
-             entropy=None) -> bytes:
+             entropy=None, threads: int = 1) -> bytes:
     """stenos_compress: data (bytes or 1-D uint8 array) -> frame bytes.
     entropy="device" runs the zstd stage's entropy coder on the engine's
-    device instead of host libzstd."""
+    device instead of host libzstd; threads > 1 compresses superblocks on
+    that many host threads (a valid frame that may differ from the 1-thread
+    one, as in the reference)."""
     return _frame.compress(data, bytesoftype, level, dst_size,
                            engine=_engine(engine, device),
-                           custom_shift=custom_shift, entropy=entropy)
+                           custom_shift=custom_shift, entropy=entropy,
+                           threads=threads)
 
 
 def decompress(frame, bytesoftype: int, dst_size=None, engine=_DEFAULT,
@@ -68,8 +71,12 @@ def has_error(code) -> bool:
 
 
 __all__ = [
+    "CompressedArray",
+    "Context",
     "compress",
+    "compress_generic",
     "decompress",
+    "decompress_generic",
     "DeviceCompressedArray",
     "default_engine",
     "get_info",
@@ -77,5 +84,6 @@ __all__ = [
     "compress_bound",
     "super_block_size",
     "StenosError",
+    "Timer",
     "__version__",
 ]

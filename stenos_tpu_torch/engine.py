@@ -7,7 +7,8 @@ engine supplies the block streams and decodes them:
   encode  encode_batch -> ops.encode_kernel.encode_superblocks (the
           encode_blocks kernel) over 64 MiB rounds of full superblocks, then
           per superblock the host LZ patch-up (_patch_lz) and the abort and
-          budget checks (finish_block_stream).
+          budget checks (finish_block_stream); encode_block_stream does both
+          for one superblock (a container chunk, a frame's partial tail).
   decode  frame.decompress gathers every full-size METHOD_BLOCK and
           METHOD_BLOCK_ZSTD superblock 64 MiB at a time: prepare_blocks
           (host libzstd on the residuals, the native parse_rows_ptrs) runs
@@ -15,6 +16,9 @@ engine supplies the block streams and decodes them:
           pinned buffers, non_blocking copies ordered by CUDA events, one
           launch of ops.decode_kernel.decode_rows (the decode_rows kernel).
           Zstd superblocks go to entropy.device_decode, 64 MiB a call.
+          One superblock alone (a container chunk, decompress_superblock):
+          decode_block_stream, the native parse_rows, then one launch of
+          decode_rows.
 
 and two device-resident paths with no host byte traffic:
 
@@ -28,10 +32,12 @@ Counterpart of stenos_tpu/engine_jax.py (JaxEngine, decompress_frame_batched,
 roundtrip_device, compress_frame_device_jit).
 A device that is asked for and missing, a kernel that does not build or
 launch, and a native runtime that does not build all raise: nothing here
-falls back to a slower tier.
+falls back to a slower tier. An engine may serve several threads (compress
+with threads=, a shared container): its device work runs under its lock.
 """
 
 import os
+import threading
 import time
 
 import numpy as np
@@ -65,17 +71,19 @@ class TorchEngine:
                                    "versions on the CPU)")
         elif self.device.type != "cpu":
             raise ValueError(f"TorchEngine: unsupported device {device}")
+        self.lock = threading.Lock()  # held around each call's device work
 
     def _encode_rounds(self, batch: np.ndarray, bpp: int, block_level: int):
         """One device call over a (r, sb) batch -> per-superblock
         (stream, total, bsizes, fsizes) tuples on the host."""
-        x = _to_device(batch, self.device)
-        streams, totals, bsizes, fsizes = encode_superblocks(
-            x, bpp, block_level)
-        streams = streams.cpu().numpy()
-        totals = totals.cpu().numpy()
-        bsizes = bsizes.cpu().numpy()
-        fsizes = fsizes.cpu().numpy()
+        with self.lock:
+            x = _to_device(batch, self.device)
+            streams, totals, bsizes, fsizes = encode_superblocks(
+                x, bpp, block_level)
+            streams = streams.cpu().numpy()
+            totals = totals.cpu().numpy()
+            bsizes = bsizes.cpu().numpy()
+            fsizes = fsizes.cpu().numpy()
         return [(streams[i], int(totals[i]), bsizes[i], fsizes[i])
                 for i in range(batch.shape[0])]
 
@@ -108,10 +116,10 @@ class TorchEngine:
         nbytes = len(chunk)
         block_size = 256 * bpp
         nb = nbytes // block_size
-        body = self._patch_lz(stream[:total], chunk, bpp, nb, bsizes, fsizes,
-                              block_level, lz_table=lz_table)
+        body, sizes = self._patch_lz(stream[:total], chunk, bpp, nb, bsizes,
+                                     fsizes, block_level, lz_table=lz_table)
         if target_ratio is not None:
-            ends = np.cumsum(self._sizes_after_lz)
+            ends = np.cumsum(sizes)
             cp = (nbytes // 16 + block_size - 1) // block_size - 1
             cp = max(cp, 0)
             if cp < nb and ((cp + 1) * block_size) / ends[cp] < target_ratio:
@@ -133,12 +141,13 @@ class TorchEngine:
             full = np.asarray(chunk[: nb * block_size]).reshape(1, -1)
             (out, total, bsizes, fsizes), = self._encode_rounds(
                 full, bpp, block_level)
-            body = self._patch_lz(out[:total], chunk, bpp, nb, bsizes, fsizes,
-                                  block_level, lz_table=lz_table)
+            body, sizes = self._patch_lz(out[:total], chunk, bpp, nb, bsizes,
+                                         fsizes, block_level,
+                                         lz_table=lz_table)
             if target_ratio is not None:
                 # abort check (block_compress.h:1267-1274) on the (possibly
                 # LZ-patched) sizes
-                ends = np.cumsum(self._sizes_after_lz)
+                ends = np.cumsum(sizes)
                 cp = None
                 for i in range(nb):
                     if (i + 1) * block_size >= nbytes // 16:
@@ -162,14 +171,15 @@ class TorchEngine:
 
     def _patch_lz(self, stream, chunk, bpp, nb, bsizes, fsizes, block_level,
                   lz_table=None):
-        """Host-side intra-block LZ attempts + splice (rare path)."""
-        self._sizes_after_lz = bsizes.copy()
+        """Host-side intra-block LZ attempts + splice (rare path) -> (the
+        block stream, each block's size after it)."""
+        sizes = bsizes.copy()
         if not (block_level == 2 and bpp % 4 == 0):
-            return bytes(stream)
+            return bytes(stream), sizes
         block_size = 256 * bpp
         cand = np.nonzero(fsizes * 3 > block_size)[0]
         if not len(cand):
-            return bytes(stream)
+            return bytes(stream), sizes
         budget = len(chunk)
         starts = np.zeros(nb + 1, dtype=np.int64)
         np.cumsum(bsizes, out=starts[1:])
@@ -194,9 +204,32 @@ class TorchEngine:
                     pieces.append(payload)
                     pos = starts[i + 1]
                     shrink += bsizes[i] - (1 + len(payload))
-                    self._sizes_after_lz[i] = 1 + len(payload)
+                    sizes[i] = 1 + len(payload)
         pieces.append(bytes(stream[pos:]))
-        return b"".join(pieces)
+        return b"".join(pieces), sizes
+
+    def decode_block_stream(self, payload, bpp: int, nbytes: int):
+        """Decode one block stream (a METHOD_BLOCK payload or an unpacked
+        METHOD_BLOCK_ZSTD residual) of nbytes: the native parse_rows, then
+        one launch of decode_rows over its full blocks; a partial tail comes
+        decoded from the parse. Less than one block is decoded on the host,
+        as in the JAX engine. Returns a uint8 array, or a negative error."""
+        from .native import load
+
+        native = load()
+        payload = bytes(memoryview(np.asarray(payload)))
+        nb = nbytes // (256 * bpp)
+        if nb == 0:
+            return native.block_decode(payload, bpp, nbytes)
+        parsed = native.parse_rows(payload, bpp, nbytes)
+        if isinstance(parsed, int):
+            return parsed
+        vbufs, plane_off, rowtab, tail = parsed
+        with self.lock:
+            out = decode_rows(*(_to_device(a, self.device)
+                                for a in (vbufs, plane_off, rowtab)),
+                              bpp, nb).view(-1).cpu().numpy()
+        return np.concatenate([out, tail]) if len(tail) else out
 
     def decode_blocks(self, prep, bpp: int, sb: int, host):
         """Decode a prepared batch (prepare_blocks) with one launch of the
@@ -226,6 +259,22 @@ class TorchEngine:
                                  k2_ms=ev[1].elapsed_time(ev[2]),
                                  d2h_ms=ev[2].elapsed_time(ev[3]))
         return out.numpy()
+
+
+# the default of an entry point's engine= (Context, CompressedArray and the
+# package's compress / decompress): a TorchEngine on its device= argument
+DEFAULT = object()
+
+
+def resolve(engine, device):
+    """The engine an entry point runs: for DEFAULT a TorchEngine on `device`
+    ("cuda" unless given; it raises when CUDA is absent), else engine itself
+    (None: the numpy host path)."""
+    if engine is DEFAULT:
+        return TorchEngine("cuda" if device is None else device)
+    if device is not None:
+        raise ValueError("pass either engine= or device=, not both")
+    return engine
 
 
 # per-batch times of the block decode (chip_smoke.py reads them), appended

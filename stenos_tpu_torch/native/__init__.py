@@ -51,6 +51,9 @@ class _Native:
         cdll.stn_parse_rows_ptrs.restype = ctypes.c_ssize_t
         cdll.stn_parse_rows_ptrs.argtypes = [
             _P, _P, _SZ, _SZ, _SZ, _SZ, _P, _P, _P, _P, _I]
+        cdll.stn_parse_rows.restype = ctypes.c_ssize_t
+        cdll.stn_parse_rows.argtypes = [_P, _SZ, _SZ, _SZ, _SZ, _P, _P, _P,
+                                        _P, _P]
         cdll.stn_zstd_sizes.restype = None
         cdll.stn_zstd_sizes.argtypes = [_P, _P, _P, _SZ, _P]
         cdll.stn_zstd_unpack.restype = None
@@ -145,6 +148,33 @@ class _Native:
         if r == 0:
             return len(srcs), 0
         return (-r >> 8) - 1, -(-r & 255)
+
+    def parse_rows(self, src, bpp: int, nbytes: int):
+        """The row index of one block stream that decodes to nbytes (at
+        least one full block of 256 * bpp bytes): (vbufs (1, row_bytes)
+        uint8, plane_off (1, P) and rowtab (1, 16, P) int32 over its nb full
+        blocks, P = nb * bpp, as parse_rows_ptrs writes them, and its partial
+        tail decoded (uint8, nbytes - nb * 256 * bpp bytes)), or a negative
+        error. Retries once with rows wide enough for LZ inlining."""
+        src = np.frombuffer(bytes(src), np.uint8)
+        nb = nbytes // (256 * bpp)
+        P = nb * bpp
+        tail = np.empty(nbytes - nb * 256 * bpp, np.uint8)
+        r = -4
+        for rb in (len(src) + 32, len(src) + nb * 256 * bpp + 16):
+            rb = (rb + 15) // 16 * 16
+            vbufs = np.empty((1, rb), np.uint8)
+            plane_off = np.empty((1, P), np.int32)
+            rowtab = np.empty((1, 16, P), np.int32)
+            r = self._lib.stn_parse_rows(
+                _ptr(src), len(src), bpp, nbytes, rb, _ptr(vbufs),
+                _ptr(plane_off), _ptr(rowtab), _ptr(np.empty(1, np.int64)),
+                _ptr(tail))
+            if r != -4:  # ERR_INPUT: LZ inlining grew past the row
+                break
+        if r < 0:
+            return int(r)
+        return vbufs, plane_off, rowtab, tail
 
     def zstd_unpack(self, srcs, lens, cap: int, threads: int):
         """Host libzstd (the binding of host/zstd.py) over n zstd frames in

@@ -1078,11 +1078,12 @@ inline ptrdiff_t parse_plane_rows_packed(const uint8_t* src, ptrdiff_t avail,
 
 // One full method-BLOCK superblock's row index (see stn_parse_rows_ptrs):
 // its virtual payload into vb (row_bytes, zeros past it), plane offsets into
-// po (P), row records into rt (16, P); its virtual length into *vlen.
+// po (P), row records into rt (16, P); its virtual length into *vlen, and
+// the read position after its last block into *end (when given).
 ptrdiff_t parse_superblock_rows(const uint8_t* src, ptrdiff_t n, size_t bpp,
                                 size_t sb, size_t row_bytes, uint8_t* vb,
                                 int32_t* po, int32_t* rt, int64_t* vlen,
-                                uint8_t* scratch) {
+                                uint8_t* scratch, ptrdiff_t* end = nullptr) {
     const size_t hdr_w = (bpp + 1) / 2;
     const size_t block_size = 256 * bpp;
     const size_t nb = sb / block_size;
@@ -1165,6 +1166,7 @@ ptrdiff_t parse_superblock_rows(const uint8_t* src, ptrdiff_t n, size_t bpp,
             }
         }
     }
+    if (end) *end = pos;
     const size_t keep = (size_t)(pos - seg);
     if (vpos + keep > row_bytes) return ERR_INPUT;
     std::memcpy(vb + vpos, src + seg, keep);
@@ -1227,6 +1229,32 @@ EXPORT ptrdiff_t stn_parse_rows_ptrs(
     for (size_t i = 0; i < n_sb; ++i)
         if (err[i] < 0) return -(((ptrdiff_t)i + 1) << 8) + err[i];
     return 0;
+}
+
+// One block stream (a METHOD_BLOCK payload, or the unpacked residual of a
+// METHOD_BLOCK_ZSTD one) that decodes to nbytes, at least one full block:
+// the row index of its nb = nbytes / (256 * bpp) full blocks, as
+// stn_parse_rows_ptrs writes it for one superblock of nb blocks, and its
+// partial tail (nbytes - nb * 256 * bpp bytes) decoded into tail. Returns 0
+// or a negative error.
+EXPORT ptrdiff_t stn_parse_rows(const uint8_t* src, size_t size, size_t bpp,
+                                size_t nbytes, size_t row_bytes, uint8_t* vb,
+                                int32_t* po, int32_t* rt, int64_t* vlen,
+                                uint8_t* tail) {
+    const size_t block_size = 256 * bpp;
+    const size_t nb = nbytes / block_size;
+    if (nb == 0) return ERR_INPUT;
+    std::vector<uint8_t> scratch(512 * bpp + 16);
+    ptrdiff_t end = 0;
+    ptrdiff_t r = parse_superblock_rows(src, (ptrdiff_t)size, bpp,
+                                        nb * block_size, row_bytes, vb, po,
+                                        rt, vlen, scratch.data(), &end);
+    if (r < 0) return r;
+    const size_t rem = nbytes - nb * block_size;
+    if (!rem) return 0;
+    r = stn_block_decode(src + end, size - (size_t)end, bpp, rem, tail,
+                         scratch.data());
+    return r < 0 ? r : 0;
 }
 
 // Host libzstd over the residuals of METHOD_BLOCK_ZSTD superblocks, through

@@ -436,10 +436,30 @@ def test_frame_compress_entropy_device_matches_jax(kind, monkeypatch):
     assert np.array_equal(frame.decompress(got, bpp, engine=eng), data)
     assert device_decode.host_ladder == before
     assert np.array_equal(frame.decompress(got, bpp, engine=None), data)
-    with pytest.raises(ValueError):
-        frame.compress(data, bpp, 2, engine=None, entropy="device")
+    # without an engine the coder runs on the default device ("cuda"),
+    # here on the CPU, as the JAX host path runs it on its default device
+    assert frame.compress(data, bpp, 2, engine=None, entropy="device",
+                          device="cpu") == got
     with pytest.raises(ValueError):
         frame.compress(data, bpp, 2, engine=eng, entropy="libzstd")
+
+
+@pytest.mark.parametrize("dm", ["0", "1"])
+def test_frame_compress_entropy_device_without_engine(dm, monkeypatch):
+    """frame.compress(..., engine=None, entropy="device"): the host block
+    path with the device entropy coder (on the CPU here; "cuda" unless
+    given), equal to the JAX package's same call under both match routes
+    (tests/test_entropy_pallas.py calls it so)."""
+    monkeypatch.setenv("STENOS_DEVICE_MATCH", dm)
+    rng = np.random.default_rng(9)
+    data = np.concatenate([_u8(TEXT[:30_000]),
+                           rng.integers(0, 32, 20_000).astype(np.uint8)])
+    got = frame.compress(data, 1, 2, engine=None, entropy="device",
+                         device="cpu")
+    assert got == ref_frame.compress(data, 1, 2, engine=None,
+                                     entropy="device")
+    assert got != frame.compress(data, 1, 2, engine=None)  # not libzstd's
+    assert np.array_equal(frame.decompress(got, 1, engine=None), data)
 
 
 def test_frame_decompress_libzstd_frame_on_device_route():
