@@ -21,7 +21,13 @@ exactly), compress_generic without a limit (the level-1 frame), threads=1
 and 4 at levels 1 and 2, engine="auto" at 1, 4 and 16 MiB (the route and
 both routes' times) and CompressedArray on 64 MiB at block_shift=4 and 4
 MiB at block_shift=0 (build, to_numpy, 10,000 reads, serialize() equal to
-the host path's; a K1 and a K2 launch a chunk); then the
+the host path's; a K1 and a K2 launch a chunk); then the sharded paths
+(phase_sharding): a world of 1 over NCCL on the same 512 MiB --
+compress(mesh=) at levels 1 and 2 and compress_device_sharded (ragged and
+gathered) equal to the single-device frames, decompress(mesh=) exact in
+one K2 launch, each timed beside the single-device path -- and two gloo
+ranks (subprocesses of this script, --gloo-rank) on this one card on 64
+MiB, their results equal to this process's single-device ones; then the
 device-resident paths on the same 512 MiB: roundtrip_device,
 DeviceCompressedArray (build, reads, serialize, deserialize) and
 compress_frame_device; K2 and K2b timed at their paths' shapes beside
@@ -41,21 +47,26 @@ last line is {"ok": true, "device": {...}}.
 """
 
 import argparse
+import hashlib
 import importlib.util
 import itertools
 import json
 import os
+import socket
 import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from datetime import timedelta
 from types import SimpleNamespace
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 import stenos_tpu_torch as stt
 from stenos_tpu_torch import device_container
+from stenos_tpu_torch import parallel as par
 from stenos_tpu_torch import engine as eng
 from stenos_tpu_torch import frame as fr
 from stenos_tpu_torch import native
@@ -95,6 +106,9 @@ HEADLINE_MB = 512  # bench.py's headline size
 TEXT_MB = 512  # the text cell: 4096 superblocks of 128 KiB
 CONTAINER_MB = 64  # CompressedArray at block_shift=4: 4096 chunks of 16 KiB
 CONTAINER_READS = 10_000  # random element reads of each container
+GLOO_MB = 64  # phase_sharding's two gloo ranks on one card
+GLOO_SEED = 11
+GLOO_TIMEOUT_S = 300
 TEXT_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "benchs",
                          "data", "code_text.txt")
 KINDS = ("sorted", "random", "same", "rle", "smallrange")
@@ -944,6 +958,282 @@ def phase_context(dev, raw, frame1, level1_s):
     check(max(err.values()) == 0, f"K1 or K2 differ from their plain "
           f"versions on a container chunk: {err}")
     return res, err
+
+
+def free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def digest(b):
+    return hashlib.sha256(bytes(memoryview(np.asarray(b)))).hexdigest()
+
+
+def in_turns_s(single, mesh):
+    """Mean host wall times in s (timed_s: the card synchronized) of
+    single() and mesh(), in turns: single, mesh, mesh, single."""
+    ts = {"single": [], "mesh": []}
+    for who in ("single", "mesh", "mesh", "single"):
+        ts[who].append(timed_s(single if who == "single" else mesh)[1])
+    return {k: sum(v) / len(v) for k, v in ts.items()}
+
+
+def mesh_decode_args(frame, bpp, dev):
+    """The args of the mesh decode's K2 launch at world 1: the native
+    parse of every full superblock of frame (all METHOD_BLOCK), on dev."""
+    from stenos_tpu_torch.entropy.device_decode import Staging
+
+    dsize, sb, pos = fr.get_info(frame, bpp)
+    f = np.frombuffer(frame, np.uint8)
+    items = []
+    for i in range(dsize // sb):
+        csize = int.from_bytes(frame[pos + 1 : pos + 4], "little")
+        items.append((frame[pos], pos + 4, csize, i * sb))
+        pos += 4 + csize
+    prep = eng.prepare_blocks(f, items, bpp, sb, Staging(dev))
+    check(prep["n_ok"] == len(items), "native parse of the mesh decode")
+    return [a.to(dev) for a in prep["args"]], sb // (256 * bpp)
+
+
+def phase_sharding(dev, raw, frames, card):
+    """The sharded paths (stenos_tpu_torch.parallel), each with the launch
+    counts set to 0 just before it and read just after. (a) A world of 1
+    over NCCL on the headline's 512 MiB: compress(mesh=) at levels 1 and 2
+    (== the headline's frames), decompress(mesh=) of the level-1 frame
+    (exact, one K2 launch) and of the level-2 frame (BLOCK_ZSTD: the
+    single-device route, one K2 launch a 64 MiB batch),
+    compress_device_sharded and the gathered variant (== the level-1
+    frame, which is compress_frame_device's); each timed beside the
+    single-device path, in turns; K1's records mode and the mesh decode's
+    one K2 launch held against their plain versions. (b) Two gloo ranks in
+    subprocesses, both on this card, on GLOO_MB of sorted int32: the same
+    four checks against the single-device results of this process."""
+    res = {"card": card, "launches": {}, "world1": {}, "gloo2": {}}
+    err = {"encode_blocks": 0, "decode_rows": 0}
+    sb = fr.super_block_size(1024)
+    n_sb = len(raw) // sb
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        mesh = par.make_mesh()
+        w1 = res["world1"]
+        for level in (1, 2):
+            reset_counts()
+            got, s = timed_s(lambda: stt.compress(raw, 4, level, mesh=mesh))
+            res["launches"][f"mesh level {level}"] = read_counts()
+            check(got == frames[level], f"mesh level {level} compress "
+                  "differs from the single-device frame")
+            del got
+            t = in_turns_s(lambda: stt.compress(raw, 4, level, device=dev),
+                           lambda: stt.compress(raw, 4, level, mesh=mesh))
+            w1[f"compress_{level}"] = {"first_s": s, **t}
+        for level in (1, 2):
+            reset_counts()
+            back = stt.decompress(frames[level], 4, mesh=mesh)
+            res["launches"][f"mesh decompress level {level}"] = read_counts()
+            check(np.array_equal(back, raw), f"mesh decompress level {level}")
+            del back
+            w1[f"decompress_{level}"] = in_turns_s(
+                lambda: stt.decompress(frames[level], 4, device=dev),
+                lambda: stt.decompress(frames[level], 4, mesh=mesh))
+        k2 = res["launches"]["mesh decompress level 1"]["decode_rows"]
+        check(k2 == 1, f"mesh decompress: {k2} K2 launches, not one")
+        for level in (1, 2):
+            check(res["launches"][f"mesh level {level}"]["encode_blocks"],
+                  f"mesh level {level} compress: K1 did not run (launches)")
+
+        x = torch.from_numpy(raw.copy()).to(dev).view(n_sb, sb)
+        for name, fn in (
+                ("ragged", lambda: par.compress_device_sharded(x, 4, 1,
+                                                               mesh)),
+                ("gathered", lambda: par.compress_device_sharded_gathered(
+                    x, 4, 1, mesh))):
+            reset_counts()
+            frame, length = fn()
+            res["launches"][f"mesh device frame {name}"] = read_counts()
+            check(res["launches"][f"mesh device frame {name}"]
+                  ["encode_blocks"] == 2, f"mesh device frame {name}: not "
+                  "two K1 launches (records, place_records)")
+            check(frame[:length].cpu().numpy().tobytes() == frames[1],
+                  f"compress_device_sharded ({name}) differs from "
+                  "compress_frame_device")
+            del frame
+            w1[f"device_frame_{name}"] = {
+                "ms": cuda_ms(fn, 3),
+                "single_ms": cuda_ms(lambda: compress_frame_device(x, 4, 1),
+                                     3)}
+        # K1's records mode (the gathered variant's rows) and the mesh
+        # decode's K2 launch against their plain versions
+        k = encode_kernel.encode_superblocks_records(x, 4, 2)
+        p = in_chunks(lambda a: encode_kernel.encode_superblocks_index_plain(
+            a, 4, 2, record_bound(sb // 1024, 4))[:4], (x,))
+        err["encode_blocks"] = encode_err(k, p)
+        del k, p, x
+        (args, nb), prep_s = timed_s(lambda: mesh_decode_args(frames[1], 4,
+                                                             dev))
+        words = decode_kernel.decode_rows(*args, 4, nb)
+        err["decode_rows"] = decode_err(
+            words, in_chunks(decode_kernel.decode_rows_plain, args, 4, nb))
+        # the mesh decode's steps one by one: the parse and upload, K2,
+        # the gather, the copy down into a pinned buffer, from there into a
+        # fresh output on threads
+        pinned = torch.empty(words.numel(), dtype=torch.uint8,
+                             pin_memory=True)
+        w1["decompress_1_steps"] = {
+            "parse_upload_ms": prep_s * 1e3,
+            "k2_ms": cuda_ms(lambda: decode_kernel.decode_rows(*args, 4, nb),
+                             3),
+            "gather_ms": cuda_ms(lambda: par.sharding.all_gather(
+                words, mesh.get_group()), 3),
+            "d2h_ms": cuda_ms(lambda: pinned.copy_(words.view(-1)), 3),
+            "to_output_ms": timed_s(lambda: fr._put(
+                np.empty(words.numel(), np.uint8), [0, 0, words.numel()],
+                pinned.numpy()))[1] * 1e3}
+        del args, words, pinned
+        check(max(err.values()) == 0, f"K1 records or the mesh decode's K2 "
+              f"differ from their plain versions: {err}")
+    finally:
+        dist.destroy_process_group()
+    for key, t in w1.items():
+        mb = len(raw) / 1e6
+        if key == "decompress_1_steps":
+            log(f"mesh world 1 decompress level 1, its steps apart (ms): {t}")
+        elif "single_ms" in t:
+            log(f"mesh world 1 (NCCL) {key}: {t['ms']:.4f} ms = "
+                f"{mb / t['ms']:.2f} GB/s; compress_frame_device "
+                f"{t['single_ms']:.4f} ms = {mb / t['single_ms']:.2f} GB/s "
+                f"[{card}]")
+        else:
+            log(f"mesh world 1 (NCCL) {key}: {t['mesh'] * 1e3:.1f} ms = "
+                f"{mb / t['mesh'] / 1e3:.4f} GB/s; single device "
+                f"{t['single'] * 1e3:.1f} ms = "
+                f"{mb / t['single'] / 1e3:.4f} GB/s [{card}]")
+    k12 = ("encode_blocks", "decode_rows")
+    log(f"  K1, K2 launches: { {k: [v[n] for n in k12] for k, v in res['launches'].items()} }; "
+        f"K1 records and K2 == plain versions: {err}")
+
+    # (b) two gloo ranks on this card
+    raw2 = sorted_int32(GLOO_MB * MIB, seed=GLOO_SEED)
+    want, single, f2 = {}, {}, {}
+    for lvl in (1, 2):
+        f2[lvl], single[f"compress level {lvl}"] = timed_s(
+            lambda: stt.compress(raw2, 4, lvl, device=dev))
+        want[f"compress_{lvl}"] = digest(np.frombuffer(f2[lvl], np.uint8))
+    single["decompress level 1"] = timed_s(
+        lambda: stt.decompress(f2[1], 4, device=dev))[1]
+    res["gloo2"]["single_device_s"] = single
+    x2 = torch.from_numpy(raw2.copy()).to(dev).view(-1, sb)
+    frame, length = compress_frame_device(x2, 4, 1)
+    want["device_frame"] = digest(frame[: int(length)].cpu().numpy())
+    del x2, frame
+    port = free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--gloo-rank", str(r),
+         "--port", str(port)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=GLOO_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, o) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"gloo rank {r} failed:\n{o[-4000:]}")
+        got = json.loads(o.strip().splitlines()[-1])
+        res["gloo2"][r] = got
+        for key, d in want.items():
+            check(got["digests"][key] == d, f"gloo rank {r}: {key} differs "
+                  "from the single-device result")
+        check(got["device_frame_shards_len"] == got["device_frame_len"],
+              f"gloo rank {r}: shard lengths")
+        for name, e in got["err"].items():
+            err[name] = max(err[name], e)
+        for path, counts in got["launches"].items():
+            tot = res["launches"].setdefault(f"gloo2 {path}", {})
+            for kname, v in counts.items():
+                tot[kname] = tot.get(kname, 0) + v
+    gl = {k: [v[n] for n in k12] for k, v in res["launches"].items()
+          if k.startswith("gloo2")}
+    for path, (k1, k2) in gl.items():
+        check(k1 if "decompress" not in path else k2 == 2,
+              f"{path}: K1 or K2 did not run on both ranks (launches)")
+    log(f"two gloo ranks on one card, {GLOO_MB} MiB: frames, the mesh "
+        "decompress and both device frames == the single-device results; "
+        f"rank times (s): {[res['gloo2'][r]['times'] for r in range(2)]}; "
+        f"one device in this process: {single}; K1, K2 launches (both "
+        f"ranks): {gl} [{card}]")
+    check(max(err.values()) == 0, f"mesh kernels differ: {err}")
+    return res, err
+
+
+def gloo_rank(rank, port):
+    """One of phase_sharding's two gloo ranks, on cuda:0: compress(mesh=)
+    at levels 1 and 2, decompress(mesh=) of the level-1 frame, the ragged
+    shards (gathered back to compare) and the gathered device frame; K1 and
+    K2 held against their plain versions at this rank's shapes. Prints one
+    JSON line: digests, launch counts a path, errors, times."""
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=2, rank=rank,
+                            timeout=timedelta(seconds=GLOO_TIMEOUT_S))
+    pg = dist.group.WORLD
+    raw = sorted_int32(GLOO_MB * MIB, seed=GLOO_SEED)
+    out = {"digests": {}, "launches": {}, "times": {}, "err": {}}
+
+    def run(path, fn):
+        reset_counts()
+        got, s = timed_s(fn)
+        out["launches"][path] = read_counts()
+        out["times"][path] = s
+        return got
+
+    frames = {}
+    for level in (1, 2):
+        frames[level] = run(f"compress level {level}",
+                            lambda: stt.compress(raw, 4, level, mesh=pg))
+        out["digests"][f"compress_{level}"] = digest(
+            np.frombuffer(frames[level], np.uint8))
+    frame1 = frames[1]
+    back = run("decompress level 1", lambda: stt.decompress(frame1, 4,
+                                                           mesh=pg))
+    check(np.array_equal(back, raw), f"gloo rank {rank}: mesh decompress")
+    sb = fr.super_block_size(1024)
+    x = torch.from_numpy(raw.copy()).to(dev).view(-1, sb)
+    half = x.shape[0] // 2
+    local = x[rank * half:(rank + 1) * half]
+    shard, total = run("device frame ragged",
+                       lambda: par.compress_device_sharded(local, 4, 1, pg))
+    lens = par.sharding.gather_ints([shard.numel()], pg, dev)[:, 0]
+    whole = par.sharding.all_gather(
+        torch.cat([shard, shard.new_zeros(int(lens.max()) - shard.numel())])
+        [None], pg)
+    joined = torch.cat([whole[r, :lens[r]] for r in range(2)])
+    out["device_frame_shards_len"] = int(joined.numel())
+    out["device_frame_len"] = total
+    frame, length = run("device frame gathered",
+                        lambda: par.compress_device_sharded_gathered(
+                            local, 4, 1, pg))
+    check(torch.equal(frame[:length].cpu(), joined.cpu()),
+          f"gloo rank {rank}: gathered frame != ragged shards")
+    out["digests"]["device_frame"] = digest(joined.cpu().numpy())
+    # K1 (streams mode on this rank's superblocks) and K2 (this rank's
+    # share of the level-1 frame) against their plain versions
+    out["err"]["encode_blocks"] = encode_err(
+        encode_kernel.encode_superblocks(local, 4, 2),
+        encode_kernel.encode_superblocks_plain(local, 4, 2))
+    args, nb = mesh_decode_args(frame1, 4, dev)
+    mine = [a[rank * half:(rank + 1) * half] for a in args]
+    out["err"]["decode_rows"] = decode_err(
+        decode_kernel.decode_rows(*mine, 4, nb),
+        decode_kernel.decode_rows_plain(*mine, 4, nb))
+    dist.destroy_process_group()
+    print(json.dumps(out), flush=True)
+    return 0
 
 
 def in_chunks(fn, row_args, *rest, per=CHUNK_BYTES // (128 * 1024)):
@@ -1953,10 +2243,16 @@ def main():
     ap.add_argument("--old-src", help="a checkout of an earlier commit: its "
                     "K2/K2b, K4, K5 and K6 kernels are timed beside these, in "
                     "turns")
+    ap.add_argument("--gloo-rank", type=int, help="run one of "
+                    "phase_sharding's two gloo ranks (phase_sharding starts "
+                    "them) and print its JSON line")
+    ap.add_argument("--port", type=int, help="the gloo ranks' port")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    if args.gloo_rank is not None:
+        return gloo_rank(args.gloo_rank, args.port)
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     card = phase_build()
@@ -1972,6 +2268,11 @@ def main():
                                   res[1]["compress_s"])
     log(f"  [{time.perf_counter() - t0:.1f} s]")
     for name, e in err_ctx.items():
+        err[name] = max(err[name], e)
+    sres, err_sh = phase_sharding(dev, raw, {lvl: r["frame"]
+                                             for lvl, r in res.items()}, card)
+    log(f"  [{time.perf_counter() - t0:.1f} s]")
+    for name, e in err_sh.items():
         err[name] = max(err[name], e)
     dres, times_dev, err_dev = phase_device(dev, raw, res[1]["frame"])
     log(f"  [{time.perf_counter() - t0:.1f} s]")
@@ -2001,9 +2302,9 @@ def main():
 
     # (source, TPU kernel it replaces, launches on its own path, by path);
     # K1 and K2 also run on the context phase's paths (timed, generic,
-    # threads, auto, the container's chunks)
-    by_level = {f"level {lvl}": r["launches"]
-                for lvl, r in res.items()} | cres["launches"]
+    # threads, auto, the container's chunks) and the sharded ones
+    by_level = ({f"level {lvl}": r["launches"] for lvl, r in res.items()}
+                | cres["launches"] | sres["launches"])
     dl = dres["launches"]
     # K3, K4 and K5 also run on the zstd stage's paths
     huff_paths = {**eres["launches"], **zres["launches"]}
@@ -2060,7 +2361,8 @@ def main():
     record = {"card": card, "device": device, "headline_mb": HEADLINE_MB,
               "headline": {lvl: {k: v for k, v in r.items() if k != "frame"}
                            for lvl, r in res.items()},
-              "device_paths": dres, "context": cres, "entropy": eres,
+              "device_paths": dres, "context": cres, "sharding": sres,
+              "entropy": eres,
               "zstd": zres,
               "timing": times,
               "kernels": kernels}

@@ -16,6 +16,11 @@ threads=n)` compresses superblocks on n host threads.
 time-limited mode (`max_nanoseconds`) included; `CompressedArray` is the
 cvector equivalent, one superblock record a chunk; `Timer` is stenos_timer.
 
+`compress_sharded` / `decompress_sharded` (and `mesh=` on `compress` and
+`decompress`) split the work over the ranks of a torch.distributed mesh,
+NCCL between cards or gloo between CPU processes (parallel/); every rank
+gets the single-device frame or array.
+
 `DeviceCompressedArray` keeps an array compressed in device memory, with an
 optional Huffman entropy stage (entropy=True), and decodes slabs on demand; `engine.roundtrip_device` and
 `engine.compress_frame_device` are the device-resident round trip and frame
@@ -43,12 +48,17 @@ def default_engine(device=None):
 
 def compress(data, bytesoftype: int, level: int = 1, dst_size=None,
              engine=_DEFAULT, device=None, custom_shift=None,
-             entropy=None, threads: int = 1) -> bytes:
+             entropy=None, threads: int = 1, mesh=None) -> bytes:
     """stenos_compress: data (bytes or 1-D uint8 array) -> frame bytes.
     entropy="device" runs the zstd stage's entropy coder on the engine's
     device instead of host libzstd; threads > 1 compresses superblocks on
     that many host threads (a valid frame that may differ from the 1-thread
-    one, as in the reference)."""
+    one, as in the reference). mesh= (a torch.distributed DeviceMesh or
+    ProcessGroup) compresses collectively over its ranks, each on its
+    `device` (the current CUDA device unless given): compress_sharded."""
+    if mesh is not None:
+        return _frame.compress(data, bytesoftype, level, entropy=entropy,
+                               device=device, mesh=mesh)
     return _frame.compress(data, bytesoftype, level, dst_size,
                            engine=_engine(engine, device),
                            custom_shift=custom_shift, entropy=entropy,
@@ -56,10 +66,33 @@ def compress(data, bytesoftype: int, level: int = 1, dst_size=None,
 
 
 def decompress(frame, bytesoftype: int, dst_size=None, engine=_DEFAULT,
-               device=None):
-    """stenos_decompress: frame bytes -> uint8 numpy array."""
+               device=None, mesh=None):
+    """stenos_decompress: frame bytes -> uint8 numpy array. mesh= decodes
+    collectively over its ranks, each on its `device` (the current CUDA
+    device unless given): decompress_sharded."""
+    if mesh is not None:
+        return _frame.decompress(frame, bytesoftype, dst_size, mesh=mesh,
+                                 device=device)
     return _frame.decompress(frame, bytesoftype, dst_size,
                              engine=_engine(engine, device))
+
+
+def compress_sharded(data, bytesoftype: int, level: int = 1, mesh=None,
+                     entropy=None, device=None) -> bytes:
+    """Multi-device frame compression over a torch.distributed mesh (see
+    parallel/api.py); also reachable as compress(..., mesh=mesh)."""
+    from .parallel.api import compress_sharded as _cs
+
+    return _cs(data, bytesoftype, level, mesh, entropy=entropy,
+               device=device)
+
+
+def decompress_sharded(frame, bytesoftype: int, mesh=None, device=None):
+    """Multi-device frame decompression over a torch.distributed mesh (see
+    parallel/api.py); also reachable as decompress(..., mesh=mesh)."""
+    from .parallel.api import decompress_sharded as _ds
+
+    return _ds(frame, bytesoftype, mesh, device=device)
 
 
 def has_error(code) -> bool:
@@ -75,8 +108,10 @@ __all__ = [
     "Context",
     "compress",
     "compress_generic",
+    "compress_sharded",
     "decompress",
     "decompress_generic",
+    "decompress_sharded",
     "DeviceCompressedArray",
     "default_engine",
     "get_info",

@@ -448,9 +448,10 @@ def private_create_compression_header(decompressed_size: int,
 
 def decompress_generic(ctx, frame, bytesoftype: int, dst_size=None):
     """stenos_decompress_generic equivalent (stenos.h:211): decompress
-    driven by a Context, which supplies the engine."""
+    driven by a Context, which supplies the engine and, when it has one,
+    the mesh."""
     return decompress(frame, bytesoftype, dst_size=dst_size,
-                      engine=ctx.engine)
+                      engine=ctx.engine, mesh=getattr(ctx, "mesh", None))
 
 
 def compress_generic(ctx, data, bytesoftype: int, dst_size=None) -> bytes:
@@ -612,7 +613,7 @@ def _timed_rounds(ctx, data, bpp: int, dst_size: int, sb: int, out, pos):
 
 def compress(data, bytesoftype: int, level: int = 1, dst_size=None,
              engine=None, custom_shift=None, entropy=None, threads: int = 1,
-             device=None) -> bytes:
+             device=None, mesh=None) -> bytes:
     """stenos_compress equivalent. data: bytes / 1D uint8 array.
 
     engine: None = numpy host path; a TorchEngine = the device path;
@@ -622,7 +623,18 @@ def compress(data, bytesoftype: int, level: int = 1, dst_size=None,
     entropy coder on the engine's device, or without an engine on `device`
     ("cuda" unless given).
     threads: superblocks compressed on that many host threads (see below).
+    mesh: a DeviceMesh or ProcessGroup of torch.distributed routes the
+    whole compress through the sharded path (parallel/api.py,
+    compress_sharded, on this rank's `device`, else the current CUDA
+    device), before engine=, threads=, dst_size= and custom_shift= are
+    looked at: collective, every rank passes the same data and gets the
+    single-device frame.
     """
+    if mesh is not None:
+        from .parallel.api import compress_sharded
+
+        return compress_sharded(data, bytesoftype, level, mesh,
+                                entropy=entropy, device=device)
     _check_entropy(entropy)
     if engine == "auto":
         engine = _auto_engine(len(data), AUTO_COMPRESS_BYTES)
@@ -1025,8 +1037,15 @@ def decompress_superblock(code, payload, bpp, dsize, engine=None):
     raise StenosError(ERROR_INVALID_INPUT)
 
 
-def decompress(frame, bytesoftype: int, dst_size=None, engine=None):
+def decompress(frame, bytesoftype: int, dst_size=None, engine=None,
+               mesh=None, device=None):
     """stenos_decompress equivalent -> uint8 array.
+
+    mesh: a DeviceMesh or ProcessGroup of torch.distributed fans the decode
+    out over its ranks (parallel/api.py, decompress_sharded, on this rank's
+    `device`, else the current CUDA device), before engine= is looked at:
+    collective, every rank passes the same frame. `device` is read only
+    with a mesh.
 
     engine: None = host path; "auto" = a TorchEngine on "cuda" for frames
     of AUTO_DECOMPRESS_BYTES and more (it raises when there is no card),
@@ -1041,6 +1060,13 @@ def decompress(frame, bytesoftype: int, dst_size=None, engine=None):
     """
     if bytesoftype == 0 or bytesoftype >= MAX_BYTESOFTYPE:
         raise StenosError(ERROR_INVALID_BYTESOFTYPE)
+    if mesh is not None:
+        from .parallel.api import decompress_sharded
+
+        r = decompress_sharded(frame, bytesoftype, mesh, device=device)
+        if dst_size is not None and len(r) > dst_size:
+            raise StenosError(ERROR_DST_OVERFLOW)
+        return r
     frame = np.frombuffer(bytes(frame), np.uint8) if not isinstance(
         frame, np.ndarray) else frame
     if engine == "auto":

@@ -22,11 +22,16 @@ with_index=True): whole frame records and the decode index that
 decode_kernel.decode_rows_derive reads. Its plain version is
 encode_superblocks_index_plain.
 
+encode_superblocks_records(data, bpp, block_level) is the streams mode's
+launch writing whole records [1, csize u24, stream] instead (the JAX
+package's encode_slabs_body rows), with no index and no device-to-host
+copy: the sharded encode's rows (parallel/).
+
 encode_superblocks_frame(data, bpp, block_level, header) writes the records
 back to back behind a frame header, in one buffer (the device frame
-compress): the same kernel's records, then a second launch, place_records,
-that moves each to its place. Its plain version is
-encode_superblocks_frame_plain.
+compress): the same kernel's records, then a second launch, place_records
+(a wrapper of its own too), that moves each to its place. Its plain version
+is encode_superblocks_frame_plain.
 
 The streams and index modes are one launch each. launch_plan gives the
 kernel's shared-memory geometry for a bpp.
@@ -213,21 +218,28 @@ def encode_superblocks_index_plain(data, bpp: int, block_level: int,
     return rows, totals, bsizes, fsizes, plane_off.to(torch.int32)
 
 
+def place_records_plain(rows, totals, header: bytes, nb: int, bpp: int):
+    """Plain torch version of place_records: the records rows[i, :totals[i]
+    + 4] (totals count the streams only) taken row by row behind the header,
+    zero-padded to the frame's capacity."""
+    n_sb = rows.shape[0]
+    keep = (torch.arange(rows.shape[1], device=rows.device)
+            < (totals + 4)[:, None])
+    body = rows[keep]  # row-major: the records in order
+    cap = len(header) + n_sb * record_bound(nb, bpp)
+    frame = torch.zeros(cap, dtype=torch.uint8, device=rows.device)
+    frame[:len(header)] = torch.tensor(list(header), dtype=torch.uint8)
+    frame[len(header):len(header) + len(body)] = body
+    return frame, (totals + 4).sum(dtype=torch.int64) + len(header)
+
+
 def encode_superblocks_frame_plain(data, bpp: int, block_level: int,
                                    header: bytes):
     """Plain torch version of the frame layout: the index mode's records
-    (rows[i, :totals[i]]) taken row by row behind the header, zero-padded to
-    the frame's capacity."""
-    n_sb, sbytes = data.shape
-    rows, totals, _, _, _ = encode_superblocks_index_plain(data, bpp,
-                                                           block_level)
-    keep = torch.arange(rows.shape[1], device=data.device) < totals[:, None]
-    body = rows[keep]  # row-major: the records in order
-    cap = len(header) + n_sb * record_bound(sbytes // (256 * bpp), bpp)
-    frame = torch.zeros(cap, dtype=torch.uint8, device=data.device)
-    frame[:len(header)] = torch.tensor(list(header), dtype=torch.uint8)
-    frame[len(header):len(header) + len(body)] = body
-    return frame, totals.sum(dtype=torch.int64) + len(header)
+    placed behind the header by place_records_plain."""
+    rows, totals = encode_superblocks_index_plain(data, bpp, block_level)[:2]
+    return place_records_plain(rows, totals - 4, header,
+                               data.shape[1] // (256 * bpp), bpp)
 
 
 def _check_args(name, data, bpp, block_level):
@@ -345,6 +357,41 @@ def encode_superblocks_index(data, bpp: int, block_level: int,
     if rows_width is None:  # cut to the longest record: a copy
         rows = rows[:, :int(totals.max())].contiguous()
     return rows, totals, bsizes, fsizes, plane_off
+
+
+def encode_superblocks_records(data, bpp: int, block_level: int):
+    """The records wrapper: one launch of K1 (counted as K1) writing each
+    superblock's record [1, csize u24, stream] at the start of its row of
+    record_bound(nb, bpp) bytes, with no device-to-host copy; on a CPU
+    tensor the index mode's plain version without its index, rows as wide.
+    Returns (rows, totals, bsizes, fsizes): rows[i, :totals[i]] is the
+    record (totals count the 4 header bytes); bytes past it are not part of
+    the contract (zeros in the plain version, unwritten on the card)."""
+    nb = data.shape[1] // (256 * bpp) if bpp > 0 else 0
+    if data.device.type == "cpu":
+        return encode_superblocks_index_plain(data, bpp, block_level,
+                                              record_bound(nb, bpp))[:4]
+    _check_args("encode_superblocks_records", data, bpp, block_level)
+    rows, totals, bsizes, fsizes, _ = _encode_rows(
+        data, bpp, block_level, record_bound(nb, bpp), 4, False, False)
+    return rows, totals + 4, bsizes, fsizes
+
+
+def place_records(rows, totals, header: bytes, nb: int, bpp: int):
+    """The frame mode's second launch on its own (counted as K1): the
+    records of rows (rows[i, :totals[i] + 4], totals counting the streams
+    only) back to back behind header, zeros to the capacity len(header) +
+    n_sb * record_bound(nb, bpp). A CPU tensor takes place_records_plain.
+    Returns (frame, length 0-d int64)."""
+    if rows.device.type == "cpu":
+        return place_records_plain(rows, totals, header, nb, bpp)
+    if (rows.device.type != "cuda" or rows.dtype != torch.uint8
+            or rows.dim() != 2 or not rows.is_contiguous()
+            or totals.dtype != torch.int32 or totals.device != rows.device
+            or tuple(totals.shape) != rows.shape[:1]):
+        raise ValueError("place_records: need contiguous (n_sb, W) uint8 "
+                         "rows and (n_sb,) int32 totals on one CUDA device")
+    return _place_records(rows, totals, header, nb, bpp)
 
 
 def encode_superblocks_frame(data, bpp: int, block_level: int,
