@@ -37,7 +37,13 @@ one slab read's shapes) and on the sorted int32; then the device
 zstd entropy stage (phase_zstd): a grid of payloads and the 512 MiB text
 cell (code text, bpp 1, level 2) compressed through libzstd and through
 compress(entropy="device"), both decompressed on the card, and K6 on the
-cell's sequences (K5 timed on a text chunk, K6 on 64 blocks). It holds each
+cell's sequences (K5 timed on a text chunk, K6 on 64 blocks); then the
+parity grid (phase_grid: tools/validate_cuda.py's closed loop and frame grid
+on a subset, each frame against the host path's and decoded both ways,
+decompress_frame_batched(keep_device=True) of the 512 MiB level-1 frame,
+eight batches, held against the data and timed beside decompress) and the entropy frames'
+options (phase_entropy_frames: encode_frame_device(sidecar=False) and
+STENOS_SEQ_ANCHORS=0, decoded on the card and by host libzstd). It holds each
 kernel against its plain version again at the shapes those paths give it,
 times the kernels with CUDA events and prints the kernels' JSON line. With
 --old-src (a checkout of an earlier commit), that commit's K2/K2b, K4, K5
@@ -117,26 +123,19 @@ KINDS = ("sorted", "random", "same", "rle", "smallrange")
 GRID_BPP = (1, 2, 3, 4, 5, 8, 16, 17, 24, 32, 64, 300)
 
 
-def gen_elements(rng, bpp, nelem, kind):
-    """The test suite's data generators (tests/conftest.py)."""
-    hi = 1 << min(8 * bpp - 1, 60)
-    if kind == "sorted":
-        a = np.sort(rng.integers(0, hi, nelem))
-    elif kind == "random":
-        a = rng.integers(0, hi, nelem)
-    elif kind == "same":
-        a = np.full(nelem, 123456789 % hi)
-    elif kind == "rle":
-        a = np.repeat(rng.integers(0, 255, max(1, nelem // 37) + 1), 37)[:nelem]
-    else:
-        a = rng.integers(1000, 1032, nelem)
-    if bpp in (1, 2, 4, 8):
-        return np.frombuffer(a.astype(f"<u{bpp}").tobytes(), np.uint8)
-    # wider elements: little-endian value bytes, zero-extended past 8
-    b8 = np.frombuffer(a.astype("<u8").tobytes(), np.uint8).reshape(nelem, 8)
-    out = np.zeros((nelem, bpp), np.uint8)
-    out[:, : min(bpp, 8)] = b8[:, : min(bpp, 8)]
-    return out.reshape(-1)
+def load_tool(name):
+    """A module of tools/ (not a package) by its path."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                        f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# the sweep: its grid and closed loop, and the data generators it shares
+vc = load_tool("validate_cuda")
+gen_elements, sorted_int32 = vc.gen_elements, vc.sorted_int32
 
 
 def low_card(rng, n):
@@ -145,13 +144,6 @@ def low_card(rng, n):
     p = 1.0 / np.arange(1, 31)
     return rng.choice(np.arange(97, 127, dtype=np.uint8), size=n,
                       p=p / p.sum())
-
-
-def sorted_int32(nbytes, seed=42):
-    """bench.py's headline data: sorted uint32 values below 2**30."""
-    rng = np.random.default_rng(seed)
-    a = np.sort(rng.integers(0, 1 << 30, nbytes // 4, dtype=np.int64))
-    return a.astype(np.uint32).view(np.uint8)
 
 
 def log(msg):
@@ -970,27 +962,37 @@ def digest(b):
     return hashlib.sha256(bytes(memoryview(np.asarray(b)))).hexdigest()
 
 
-def in_turns_s(single, mesh):
-    """Mean host wall times in s (timed_s: the card synchronized) of
-    single() and mesh(), in turns: single, mesh, mesh, single."""
-    ts = {"single": [], "mesh": []}
-    for who in ("single", "mesh", "mesh", "single"):
-        ts[who].append(timed_s(single if who == "single" else mesh)[1])
+def in_turns_s(fns, rounds=1, events=False):
+    """Mean host wall times in s (timed_s: the card synchronized) of each
+    of fns (name -> function), in turns (a, b, b, a, rounds times);
+    events=True adds each one's mean time between CUDA events around the
+    call, in s, under name + "_events"."""
+    ts = {k: [] for k in fns} | ({k + "_events": [] for k in fns}
+                                if events else {})
+    for who in (list(fns) + list(fns)[::-1]) * rounds:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+
+        def call():
+            ev[0].record()
+            fns[who]()
+            ev[1].record()
+
+        ts[who].append(timed_s(call)[1])
+        if events:
+            ts[who + "_events"].append(ev[0].elapsed_time(ev[1]) / 1e3)
     return {k: sum(v) / len(v) for k, v in ts.items()}
 
 
 def mesh_decode_args(frame, bpp, dev):
     """The args of the mesh decode's K2 launch at world 1: the native
-    parse of every full superblock of frame (all METHOD_BLOCK), on dev."""
+    parse of every superblock of frame (all METHOD_BLOCK), on dev."""
     from stenos_tpu_torch.entropy.device_decode import Staging
 
-    dsize, sb, pos = fr.get_info(frame, bpp)
     f = np.frombuffer(frame, np.uint8)
-    items = []
-    for i in range(dsize // sb):
-        csize = int.from_bytes(frame[pos + 1 : pos + 4], "little")
-        items.append((frame[pos], pos + 4, csize, i * sb))
-        pos += 4 + csize
+    found = eng._block_records(f, bpp)
+    check(found is not None, "the mesh decode's frame is not all "
+          "METHOD_BLOCK superblocks")
+    sb, items = found
     prep = eng.prepare_blocks(f, items, bpp, sb, Staging(dev))
     check(prep["n_ok"] == len(items), "native parse of the mesh decode")
     return [a.to(dev) for a in prep["args"]], sb // (256 * bpp)
@@ -1025,8 +1027,9 @@ def phase_sharding(dev, raw, frames, card):
             check(got == frames[level], f"mesh level {level} compress "
                   "differs from the single-device frame")
             del got
-            t = in_turns_s(lambda: stt.compress(raw, 4, level, device=dev),
-                           lambda: stt.compress(raw, 4, level, mesh=mesh))
+            t = in_turns_s({
+                "single": lambda: stt.compress(raw, 4, level, device=dev),
+                "mesh": lambda: stt.compress(raw, 4, level, mesh=mesh)})
             w1[f"compress_{level}"] = {"first_s": s, **t}
         for level in (1, 2):
             reset_counts()
@@ -1034,9 +1037,10 @@ def phase_sharding(dev, raw, frames, card):
             res["launches"][f"mesh decompress level {level}"] = read_counts()
             check(np.array_equal(back, raw), f"mesh decompress level {level}")
             del back
-            w1[f"decompress_{level}"] = in_turns_s(
-                lambda: stt.decompress(frames[level], 4, device=dev),
-                lambda: stt.decompress(frames[level], 4, mesh=mesh))
+            w1[f"decompress_{level}"] = in_turns_s({
+                "single": lambda: stt.decompress(frames[level], 4,
+                                                 device=dev),
+                "mesh": lambda: stt.decompress(frames[level], 4, mesh=mesh)})
         k2 = res["launches"]["mesh decompress level 1"]["decode_rows"]
         check(k2 == 1, f"mesh decompress: {k2} K2 launches, not one")
         for level in (1, 2):
@@ -2237,6 +2241,152 @@ def phase_zstd(dev, old=None):
     return res, times, err
 
 
+# phase_grid: the sweep's frame grid (tools/validate_cuda.py) on a subset,
+# and its device closed loop at these bpp
+PHASE_GRID = {"bpps": (1, 3, 4, 16, 300), "kinds": KINDS,
+              "sizes": (100, 70_001, 400_000), "levels": (0, 1, 5, 9)}
+GRID_LOOP_BPPS = (1, 3, 4, 16, 24, 300)
+ENTROPY_FRAME_MB = 4  # phase_entropy_frames: 4 MiB of text, 4 of literals
+
+
+def phase_grid(dev, raw, frame):
+    """The sweep's grid on a subset (tools/validate_cuda.py: the card's
+    frames against the host path's, both decodes, decompress_frame_batched
+    on the level-1 frames and a custom_shift frame a bpp) after its device
+    closed loop, one counted path; then decompress_frame_batched(
+    keep_device=True) of the headline's level-1 frame (raw, frame: one
+    tensor and one K2 launch a CHUNK_BYTES batch, so the two sets of parse
+    buffers take turns), its tensors held against the data, timed in turns
+    beside stt.decompress of the same frame."""
+    res = {"launches": {}}
+    reset_counts()
+    t0 = time.perf_counter()
+    loop_failed = vc.closed_loop(dev, GRID_LOOP_BPPS, log=log)
+    g = vc.grid(dev, **PHASE_GRID, log=lambda m: None)
+    res["launches"]["parity_grid"] = read_counts()
+    res["grid"] = {"seconds": time.perf_counter() - t0, "loop_bpps":
+                   GRID_LOOP_BPPS, **PHASE_GRID,
+                   **{k: g[k] for k in ("cases", "fails", "batched",
+                                        "failed")}}
+    log(f"grid: device closed loop at bpp {GRID_LOOP_BPPS} "
+        f"({len(loop_failed)} failed), {g['cases']} frames ({g['fails']} "
+        f"failed; decompress_frame_batched decoded {g['batched'][0]}, None "
+        f"for {g['batched'][1]}) in {res['grid']['seconds']:.1f} s, "
+        f"launches {res['launches']['parity_grid']}")
+    for line in g["failed"]:
+        log(f"  {line}")
+    check(not loop_failed and not g["fails"],
+          f"grid: closed loop failed at {loop_failed}, {g['fails']} frames")
+    check(g["batched"][0] > 0, "grid: no frame through "
+          "decompress_frame_batched")
+    gl = res["launches"]["parity_grid"]
+    check(all(gl[k] for k in ("encode_blocks", "encode_blocks_index",
+                              "decode_rows", "decode_rows_derive")),
+          f"grid: K1, K1b, K2 or K2b did not run: {gl}")
+
+    check(vc.batched_expected(frame, 4), "the headline's level-1 frame is "
+          "not all METHOD_BLOCK superblocks")
+    reset_counts()
+    outs = eng.decompress_frame_batched(frame, 4, device=dev,
+                                        keep_device=True)
+    res["launches"]["decompress_frame_batched"] = read_counts()
+    kl = res["launches"]["decompress_frame_batched"]
+    want = torch.from_numpy(raw).to(dev)
+    check(outs is not None and all(t.device.type == dev.type for t in outs)
+          and torch.equal(torch.cat(outs), want),
+          "decompress_frame_batched(keep_device=True): tensors differ from "
+          "the data")
+    n_batch = -(-len(raw) // CHUNK_BYTES)
+    check(n_batch > 2 and len(outs) == n_batch
+          and kl["decode_rows"] == n_batch,
+          f"decompress_frame_batched: {len(outs)} tensors of {n_batch} "
+          f"batches, launches {kl}")
+    del outs, want
+    check(np.array_equal(eng.decompress_frame_batched(frame, 4, device=dev),
+                         raw), "decompress_frame_batched: numpy output")
+    t = in_turns_s({
+        "keep_device": lambda: eng.decompress_frame_batched(
+            frame, 4, device=dev, keep_device=True),
+        "decompress": lambda: stt.decompress(frame, 4, device=dev)},
+        rounds=2, events=True)
+    res["batched"] = {"mb": len(raw) // MIB, "frame_bytes": len(frame),
+                      "tensors": n_batch, **t}
+    log(f"{len(raw) // MIB} MiB level-1 frame: decompress_frame_batched("
+        f"keep_device=True) {t['keep_device'] * 1e3:.2f} ms host / "
+        f"{t['keep_device_events'] * 1e3:.2f} ms events, stt.decompress "
+        f"{t['decompress'] * 1e3:.2f} / {t['decompress_events'] * 1e3:.2f} "
+        f"ms (means of 4, in turns); launches {kl}")
+    return res
+
+
+def phase_entropy_frames(dev):
+    """encode_frame_device(sidecar=False) and STENOS_SEQ_ANCHORS=0 on the
+    text cell's first 4 MiB (blocks with sequences) and 4 MiB of bytes
+    below 64 (literal blocks: K3, K4). A sidecar=False frame is the default
+    frame without its sidecar; under STENOS_SEQ_ANCHORS=0 the text's
+    sidecar changes (its blocks lose their anchors) and the literals' does
+    not. Every frame decodes on the card (decode_payload_device, no payload
+    to the host ladder) and through host libzstd to the data. Each variant
+    is a counted path."""
+    n = ENTROPY_FRAME_MB * MIB
+    g = torch.Generator(device=dev).manual_seed(5)
+    data = {"text": text_cell(n),
+            "literals": torch.randint(0, 64, (n,), generator=g, device=dev,
+                                      dtype=torch.uint8).cpu().numpy()}
+    full = {k: zstd_frame.encode_frame_device(d, dev)
+            for k, d in data.items()}
+    bare = {}
+    res = {"launches": {}, "frames": {}}
+    for path, env, sidecar in (("sidecar_false", None, False),
+                               ("seq_anchors_0", "0", True)):
+        old = os.environ.pop("STENOS_SEQ_ANCHORS", None)
+        if env is not None:
+            os.environ["STENOS_SEQ_ANCHORS"] = env
+        ladder = device_decode.host_ladder
+        reset_counts()
+        t0 = time.perf_counter()
+        try:
+            for name, d in data.items():
+                f = zstd_frame.encode_frame_device(d, dev, sidecar=sidecar)
+                out = device_decode.decode_payload_device(f, len(d), dev)
+                check(out is not None and torch.equal(
+                    out, torch.from_numpy(d).to(dev)),
+                    f"{path} {name}: the card's decode differs")
+                check(zstd_host.decompress(f, len(d)) == d.tobytes(),
+                      f"{path} {name}: host libzstd's decode differs")
+                if not sidecar:
+                    bare[name] = f
+                    check(full[name][: len(f)] == f
+                          and len(full[name]) > len(f),
+                          f"{path} {name}: not the default frame without "
+                          "its sidecar")
+                else:
+                    check(f.startswith(bare[name])
+                          and (f != full[name]) == (name == "text"),
+                          f"{path} {name}: the sidecar did not change as "
+                          "expected")
+                res["frames"][f"{path}.{name}"] = {
+                    "bytes": len(f), "default_bytes": len(full[name])}
+        finally:
+            os.environ.pop("STENOS_SEQ_ANCHORS", None)
+            if old is not None:
+                os.environ["STENOS_SEQ_ANCHORS"] = old
+        res["launches"][path] = read_counts()
+        res[f"{path}_s"] = time.perf_counter() - t0
+        check(device_decode.host_ladder == ladder,
+              f"{path}: a payload went to the host ladder")
+        log(f"entropy frames, {path}: {res[f'{path}_s']:.2f} s, launches "
+            f"{res['launches'][path]}")
+    log(f"  frame bytes: {res['frames']}")
+    pl = res["launches"]
+    check(all(pl["sidecar_false"][k] for k in (
+        "huff_histogram", "huff_encode_streams", "huff_decode_streams",
+        "seq_decode", "seq_exec")) and all(pl["seq_anchors_0"][k] for k in (
+            "huff_decode_streams", "seq_decode", "seq_exec")),
+          f"entropy frames: a kernel did not run on its path: {pl}")
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="chiprun_out/chip_smoke.json")
@@ -2299,15 +2449,22 @@ def main():
     times.update(times_z)
     for name, e in err_z.items():
         err[name] = max(err.get(name, 0), e)
+    gres = phase_grid(dev, raw, res[1]["frame"])
+    log(f"  [{time.perf_counter() - t0:.1f} s]")
+    efres = phase_entropy_frames(dev)
+    log(f"  [{time.perf_counter() - t0:.1f} s]")
 
     # (source, TPU kernel it replaces, launches on its own path, by path);
     # K1 and K2 also run on the context phase's paths (timed, generic,
     # threads, auto, the container's chunks) and the sharded ones
     by_level = ({f"level {lvl}": r["launches"] for lvl, r in res.items()}
-                | cres["launches"] | sres["launches"])
-    dl = dres["launches"]
-    # K3, K4 and K5 also run on the zstd stage's paths
-    huff_paths = {**eres["launches"], **zres["launches"]}
+                | cres["launches"] | sres["launches"] | gres["launches"])
+    pgrid = {"parity_grid": gres["launches"]["parity_grid"]}
+    dl = dres["launches"] | pgrid
+    # K3, K4 and K5 also run on the zstd stage's paths; K5, K7 and X1 on
+    # the parity grid's and the entropy frames' too
+    zpaths = zres["launches"] | efres["launches"] | pgrid
+    huff_paths = {**eres["launches"], **zpaths}
     replaces = {
         "encode_blocks": ("stenos_tpu_torch/csrc/encode_blocks.cu",
                           "stenos_tpu/ops/encode_pallas.py:188",
@@ -2334,15 +2491,13 @@ def main():
                                 eres["launches"]["to_array"], huff_paths),
         "fse_encode": ("stenos_tpu_torch/csrc/fse_encode.cu",
                        "stenos_tpu/entropy/fse_pallas.py:76",
-                       zres["launches"]["fse_entry"], zres["launches"]),
+                       zres["launches"]["fse_entry"], zpaths),
         "seq_decode": ("stenos_tpu_torch/csrc/seq_decode.cu",
                        "stenos_tpu/entropy/seqdec_pallas.py:75",
-                       zres["launches"]["decompress_device"],
-                       zres["launches"]),
+                       zres["launches"]["decompress_device"], zpaths),
         "seq_exec": ("stenos_tpu_torch/csrc/seq_exec.cu",
                      "stenos_tpu/entropy/seq_exec.py:67",
-                     zres["launches"]["decompress_device"],
-                     zres["launches"]),
+                     zres["launches"]["decompress_device"], zpaths),
     }
     kernels = [{
         "name": name, "route": "cuda", "source": src, "replaces": rep,
@@ -2362,7 +2517,7 @@ def main():
               "headline": {lvl: {k: v for k, v in r.items() if k != "frame"}
                            for lvl, r in res.items()},
               "device_paths": dres, "context": cres, "sharding": sres,
-              "entropy": eres,
+              "entropy": eres, "grid": gres, "entropy_frames": efres,
               "zstd": zres,
               "timing": times,
               "kernels": kernels}

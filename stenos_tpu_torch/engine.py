@@ -18,7 +18,9 @@ engine supplies the block streams and decodes them:
           Zstd superblocks go to entropy.device_decode, 64 MiB a call.
           One superblock alone (a container chunk, decompress_superblock):
           decode_block_stream, the native parse_rows, then one launch of
-          decode_rows.
+          decode_rows. decompress_frame_batched decodes a frame of
+          METHOD_BLOCK superblocks only, 64 MiB a launch, into a numpy
+          array or (keep_device=True) into tensors left on the device.
 
 and two device-resident paths with no host byte traffic:
 
@@ -346,6 +348,98 @@ def prepare_blocks(frame: np.ndarray, items, bpp: int, sb: int, bufs):
     if n_ok:
         args = (vb[:n_ok], po[:n_ok], rt[:n_ok])
     return {"n_ok": n_ok, "args": args, "times": times}
+
+
+def _block_records(frame: np.ndarray, bpp: int, tail: bool = False):
+    """(sb, items) of a frame whose every full superblock is a METHOD_BLOCK
+    record, items as prepare_blocks takes them; None when the frame is
+    empty, its superblock is no whole number of blocks, it has no full
+    superblock, a full superblock's record is of another method, or a
+    record runs past the frame. tail=False also takes None for a size that
+    is no whole number of superblocks; tail=True takes such a frame, and
+    the partial superblock's record, of any method, is the last item."""
+    from .constants import METHOD_BLOCK
+    from .frame import get_info
+
+    dsize, sb, pos = get_info(frame[:12].tobytes(), bpp)
+    if dsize == 0 or sb % (256 * bpp) or (dsize % sb and not tail):
+        return None
+    n_sb = dsize // sb
+    if n_sb == 0:
+        return None
+    items = []
+    for i in range(n_sb + (dsize % sb > 0)):
+        if pos + 4 > len(frame):
+            return None
+        code = int(frame[pos])
+        csize = int.from_bytes(frame[pos + 1 : pos + 4].tobytes(), "little")
+        if (code != METHOD_BLOCK and i < n_sb) or pos + 4 + csize > len(frame):
+            return None
+        items.append((code, pos + 4, csize, i * sb))
+        pos += 4 + csize
+    return sb, items
+
+
+def decompress_frame_batched(frame, bpp: int, engine=None,
+                             keep_device: bool = False, device=None):
+    """Decode a frame whose every superblock is a full-size METHOD_BLOCK
+    record (the level-1 typed-array fast path), as the JAX package's
+    decompress_frame_batched.
+
+    Returns the decoded bytes as a uint8 numpy array (frame.decompress on
+    the engine: its batcher), or None when the frame does not fit the fast
+    path (an empty frame, a superblock that is no whole number of blocks, a
+    size that is no whole number of superblocks, a record of another
+    method, a superblock that does not decode): the caller then takes
+    frame.decompress.
+
+    keep_device=True returns a list of 1-D uint8 tensors on the engine's
+    device, one a batch of CHUNK_BYTES, whose bytes in order are the
+    decoded array: nothing is copied back to the host. Each batch is one
+    launch of the decode kernel (decode_rows), and the host pass of a batch
+    (prepare_blocks) runs while the batch before it decodes. Two sets of
+    parse buffers (pinned on a CUDA device) take turns, and a set is
+    refilled only after the event recorded behind its upload.
+
+    engine: a TorchEngine; None makes one on `device` ("cuda" unless given,
+    raising when CUDA is absent)."""
+    from .entropy.device_decode import Staging
+    from .frame import StenosError, decompress
+
+    if engine is None:
+        engine = TorchEngine("cuda" if device is None else device)
+    elif device is not None:
+        raise ValueError("pass either engine= or device=, not both")
+    frame = np.ascontiguousarray(np.frombuffer(bytes(frame), np.uint8))
+    found = _block_records(frame, bpp)
+    if found is None:
+        return None
+    if not keep_device:
+        try:
+            return decompress(frame, bpp, engine=engine)
+        except StenosError:
+            return None
+    sb, items = found
+    dev = engine.device
+    nb = sb // (256 * bpp)
+    per = max(1, CHUNK_BYTES // sb)
+    bufs = [Staging(dev), Staging(dev)]
+    uploaded = [None, None]  # the event behind each set's last upload
+    outs = []
+    for k, i in enumerate(range(0, len(items), per)):
+        batch = items[i : i + per]
+        if uploaded[k % 2] is not None:
+            uploaded[k % 2].synchronize()
+        prep = prepare_blocks(frame, batch, bpp, sb, bufs[k % 2])
+        if prep["n_ok"] < len(batch):
+            return None
+        with engine.lock:
+            args = [a.to(dev, non_blocking=True) for a in prep["args"]]
+            if dev.type == "cuda":
+                uploaded[k % 2] = torch.cuda.Event()
+                uploaded[k % 2].record()
+            outs.append(decode_rows(*args, bpp, nb).view(-1))
+    return outs
 
 
 def roundtrip_device(batch, bpp: int, block_level: int = 2):

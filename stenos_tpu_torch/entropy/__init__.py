@@ -6,3 +6,5 @@ sidecar.py and the native block encoder), zstd payloads decoded on the card
 (device_decode.py: the sequence decode kernel in seqdec_kernel.py and the
 sequence executor in seq_exec.py), and the sequence-section encode kernel
 (fse_kernel.py, with fse.py and sequences.py), an entry point of its own."""
+
+from .zstd_frame import encode_frame_host  # noqa: F401

@@ -9,8 +9,13 @@ with LZ potential, and the partial tail, go to the native block encoder
 (stn_encode_block: match finding, greedy parse, Huffman literals, FSE
 sequences); their match candidates come from the card (match_device.py)
 unless STENOS_DEVICE_MATCH=0. The output is plain standard zstd, decodable
-by libzstd, followed by a skippable sidecar of decode anchors (sidecar.py)
-that lets device_decode.py decode the literals on the card.
+by libzstd, followed (unless sidecar=False) by a skippable sidecar of
+decode anchors (sidecar.py) that lets device_decode.py decode the literals
+on the card without scanning them. STENOS_SEQ_ANCHORS=0 leaves the blocks
+of the native encoder out of the sidecar: the decode then scans their
+literals (stn_huf_anchors), as it does for libzstd's frames.
+encode_frame_host encodes every block through the native encoder (its own
+match finding), with no sidecar.
 """
 
 import os
@@ -27,6 +32,28 @@ from .sidecar import pack_sidecar
 from .zstd_parse import BlockSpec, _parse_sections
 
 BLOCK_MAX = 128 * 1024
+MAGIC = 0xFD2FB528
+
+
+def _seq_anchors_on() -> bool:
+    """STENOS_SEQ_ANCHORS: "0" or "false" leaves the native encoder's
+    blocks without sidecar anchors."""
+    return os.environ.get("STENOS_SEQ_ANCHORS", "1") not in ("0", "false")
+
+
+def _header(n: int) -> bytearray:
+    """Frame header: single segment, 4-byte content size; an empty frame
+    gets its one empty raw block."""
+    out = bytearray(MAGIC.to_bytes(4, "little") + bytes([0xA0])
+                    + n.to_bytes(4, "little"))
+    if n == 0:
+        out += (1 | (0 << 1) | (0 << 3)).to_bytes(3, "little")
+    return out
+
+
+def _u8(data) -> np.ndarray:
+    return np.frombuffer(bytes(data), np.uint8) if not isinstance(
+        data, np.ndarray) else np.asarray(data, np.uint8)
 
 
 def encode_block(data: np.ndarray, last: bool, reps=None, cand=None):
@@ -90,32 +117,46 @@ def _route_blocks(full, device):
     return runny, cands
 
 
-def encode_frame_device(data, device="cuda") -> bytes:
+def encode_frame_host(data) -> bytes:
     """data: bytes or uint8 array -> one zstd frame (single segment, 4-byte
-    content size) and the decode-anchor skippable frame, which libzstd and
-    the C++ reference skip. device: where K3, K4 and the match candidates
-    run (a CPU device takes their plain versions)."""
-    device = torch.device(device)
-    data = np.frombuffer(bytes(data), np.uint8) if not isinstance(
-        data, np.ndarray) else np.asarray(data, np.uint8)
+    content size) of 128 KiB blocks through the native encoder, with no
+    sidecar."""
+    data = _u8(data)
     n = len(data)
-    out = bytearray()
-    out += (0xFD2FB528).to_bytes(4, "little")
-    out += bytes([0xA0])
-    out += n.to_bytes(4, "little")
+    out = _header(n)
+    pos = 0
+    reps = None
+    while pos < n:
+        chunk = data[pos : pos + BLOCK_MAX]
+        pos += len(chunk)
+        blk, reps = encode_block(chunk, pos >= n, reps)
+        out += blk
+    return bytes(out)
+
+
+def encode_frame_device(data, device="cuda", sidecar: bool = True) -> bytes:
+    """data: bytes or uint8 array -> one zstd frame (single segment, 4-byte
+    content size) and, when sidecar is true, the decode-anchor skippable
+    frame, which libzstd and the C++ reference skip. device: where K3, K4
+    and the match candidates run (a CPU device takes their plain
+    versions)."""
+    device = torch.device(device)
+    data = _u8(data)
+    n = len(data)
+    out = _header(n)
     if n == 0:
-        out += (1 | (0 << 1) | (0 << 3)).to_bytes(3, "little")
         return bytes(out)
     nfull = n // BLOCK_MAX
     blocks = []
     sc_entries = []
     reps = None  # repeat-offset registers persist across blocks
+    host_anchors = sidecar and _seq_anchors_on()
 
     def host_block(chunk, last, cand=None):
         nonlocal reps
         blk, reps = encode_block(chunk, last, reps, cand=cand)
         blocks.append(blk)
-        sc_entries.append(_block_anchor_entry(blk))
+        sc_entries.append(_block_anchor_entry(blk) if host_anchors else None)
 
     if nfull:
         full = data[: nfull * BLOCK_MAX].reshape(nfull, BLOCK_MAX)
@@ -172,6 +213,6 @@ def encode_frame_device(data, device="cuda") -> bytes:
         host_block(data[nfull * BLOCK_MAX :], True)
     for blk in blocks:
         out += blk
-    if any(e is not None for e in sc_entries):
+    if sidecar and any(e is not None for e in sc_entries):
         out += pack_sidecar(sc_entries)
     return bytes(out)

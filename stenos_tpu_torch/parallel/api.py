@@ -29,8 +29,8 @@ fails raises: nothing here falls back to another route.
 import numpy as np
 import torch
 
-from ..constants import ERROR_INVALID_INPUT, METHOD_BLOCK
-from ..engine import (CHUNK_BYTES, TorchEngine, _to_device,
+from ..constants import ERROR_INVALID_INPUT
+from ..engine import (CHUNK_BYTES, TorchEngine, _block_records, _to_device,
                       frame_header_bytes, prepare_blocks)
 from ..ops.decode_kernel import decode_rows
 from ..ops.encode_kernel import (encode_superblocks,
@@ -171,23 +171,12 @@ def _decode_frame_sharded(frame: np.ndarray, bpp: int, group, dev):
     from .. import frame as fr
     from ..entropy.device_decode import Staging
 
-    dsize_total, sb, pos = fr.get_info(frame[:12].tobytes(), bpp)
-    if dsize_total == 0 or sb % (256 * bpp):
+    found = _block_records(frame, bpp, tail=True)
+    if found is None:
         return None
+    sb, items = found
+    dsize_total = fr.get_info(frame[:12].tobytes(), bpp)[0]
     n_sb = dsize_total // sb
-    if n_sb == 0:
-        return None
-    n = len(frame)
-    items, p = [], pos
-    for i in range(n_sb + (dsize_total > n_sb * sb)):
-        if p + 4 > n:
-            return None
-        code = int(frame[p])
-        csize = int.from_bytes(frame[p + 1 : p + 4].tobytes(), "little")
-        if (code != METHOD_BLOCK and i < n_sb) or p + 4 + csize > n:
-            return None
-        items.append((code, p + 4, csize, i * sb))
-        p += 4 + csize
     tail = items[n_sb:]
     nd, rank = group.size(), group.rank()
     share = -(-n_sb // nd)
