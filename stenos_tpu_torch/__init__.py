@@ -34,6 +34,7 @@ from .device_container import DeviceCompressedArray
 from .engine import DEFAULT as _DEFAULT
 from .engine import resolve as _engine
 from .frame import StenosError, compress_generic, decompress_generic, get_info
+from .utils import trace as _trace
 from .utils.timer import Timer
 from . import frame as _frame
 
@@ -59,10 +60,11 @@ def compress(data, bytesoftype: int, level: int = 1, dst_size=None,
     if mesh is not None:
         return _frame.compress(data, bytesoftype, level, entropy=entropy,
                                device=device, mesh=mesh)
-    return _frame.compress(data, bytesoftype, level, dst_size,
-                           engine=_engine(engine, device),
-                           custom_shift=custom_shift, entropy=entropy,
-                           threads=threads)
+    with _trace.span("stn.compress", nbytes=len(data)):
+        return _frame.compress(data, bytesoftype, level, dst_size,
+                               engine=_engine(engine, device),
+                               custom_shift=custom_shift, entropy=entropy,
+                               threads=threads)
 
 
 def decompress(frame, bytesoftype: int, dst_size=None, engine=_DEFAULT,
@@ -73,8 +75,9 @@ def decompress(frame, bytesoftype: int, dst_size=None, engine=_DEFAULT,
     if mesh is not None:
         return _frame.decompress(frame, bytesoftype, dst_size, mesh=mesh,
                                  device=device)
-    return _frame.decompress(frame, bytesoftype, dst_size,
-                             engine=_engine(engine, device))
+    with _trace.span("stn.decompress", nbytes=len(frame)):
+        return _frame.decompress(frame, bytesoftype, dst_size,
+                                 engine=_engine(engine, device))
 
 
 def compress_sharded(data, bytesoftype: int, level: int = 1, mesh=None,

@@ -39,8 +39,8 @@ with threads=, a shared container): its device work runs under its lock.
 """
 
 import os
+import sys
 import threading
-import time
 
 import numpy as np
 import torch
@@ -52,6 +52,7 @@ from .constants import (BLOCK_LZ, BLOCK_PARTIAL, ERROR_DST_OVERFLOW,
 from .ops.decode_kernel import decode_rows, decode_rows_derive
 from .ops.encode_kernel import (encode_superblocks, encode_superblocks_frame,
                                 encode_superblocks_index, record_bound)
+from .utils import trace
 
 CHUNK_BYTES = 64 * 1024 * 1024  # superblocks per device call, in bytes
 
@@ -79,13 +80,16 @@ class TorchEngine:
         """One device call over a (r, sb) batch -> per-superblock
         (stream, total, bsizes, fsizes) tuples on the host."""
         with self.lock:
-            x = _to_device(batch, self.device)
+            with trace.span("stn.upload", self.device, nbytes=batch.nbytes,
+                            superblocks=batch.shape[0]):
+                x = _to_device(batch, self.device)
             streams, totals, bsizes, fsizes = encode_superblocks(
                 x, bpp, block_level)
-            streams = streams.cpu().numpy()
-            totals = totals.cpu().numpy()
-            bsizes = bsizes.cpu().numpy()
-            fsizes = fsizes.cpu().numpy()
+            with trace.span("stn.readback", self.device):
+                streams = streams.cpu().numpy()
+                totals = totals.cpu().numpy()
+                bsizes = bsizes.cpu().numpy()
+                fsizes = fsizes.cpu().numpy()
         return [(streams[i], int(totals[i]), bsizes[i], fsizes[i])
                 for i in range(batch.shape[0])]
 
@@ -101,10 +105,12 @@ class TorchEngine:
             return [None] * n_sb
         per_call = max(1, CHUNK_BYTES // sb)
         pre = []
-        for i in range(0, n_full, per_call):
-            r = min(per_call, n_full - i)
-            batch = np.asarray(data[i * sb : (i + r) * sb]).reshape(r, sb)
-            pre += self._encode_rounds(batch, bpp, block_level)
+        with trace.span("stn.encode_batch", nbytes=n_full * sb,
+                        superblocks=n_full):
+            for i in range(0, n_full, per_call):
+                r = min(per_call, n_full - i)
+                batch = np.asarray(data[i * sb : (i + r) * sb]).reshape(r, sb)
+                pre += self._encode_rounds(batch, bpp, block_level)
         return pre + [None] * (n_sb - n_full)
 
     def finish_block_stream(self, pre, chunk, bpp, budget, target_ratio,
@@ -194,21 +200,22 @@ class TorchEngine:
         # at level 1 the caller passes a FRAME-scoped table instead
         if lz_table is None:
             lz_table = fresh_table()
-        for i in cand:
-            p = starts[i] - shrink
-            if budget > p + fsizes[i] + bpp * 8 + 2:
-                payload = lz_compress_block(
-                    chunk[i * block_size : (i + 1) * block_size], bpp,
-                    int(fsizes[i]), lz_table)
-                if payload is not None:
-                    pieces.append(bytes(stream[pos : starts[i]]))
-                    pieces.append(bytes([BLOCK_LZ]))
-                    pieces.append(payload)
-                    pos = starts[i + 1]
-                    shrink += bsizes[i] - (1 + len(payload))
-                    sizes[i] = 1 + len(payload)
-        pieces.append(bytes(stream[pos:]))
-        return b"".join(pieces), sizes
+        with trace.span("stn.patch_lz", nbytes=len(chunk), superblocks=1):
+            for i in cand:
+                p = starts[i] - shrink
+                if budget > p + fsizes[i] + bpp * 8 + 2:
+                    payload = lz_compress_block(
+                        chunk[i * block_size : (i + 1) * block_size], bpp,
+                        int(fsizes[i]), lz_table)
+                    if payload is not None:
+                        pieces.append(bytes(stream[pos : starts[i]]))
+                        pieces.append(bytes([BLOCK_LZ]))
+                        pieces.append(payload)
+                        pos = starts[i + 1]
+                        shrink += bsizes[i] - (1 + len(payload))
+                        sizes[i] = 1 + len(payload)
+            pieces.append(bytes(stream[pos:]))
+            return b"".join(pieces), sizes
 
     def decode_block_stream(self, payload, bpp: int, nbytes: int):
         """Decode one block stream (a METHOD_BLOCK payload or an unpacked
@@ -237,29 +244,28 @@ class TorchEngine:
         """Decode a prepared batch (prepare_blocks) with one launch of the
         decode kernel: on a CUDA device the parse output goes up by
         non_blocking copies from its pinned buffers and the decoded bytes
-        come back into host's pinned buffer "decoded", CUDA events ordering
-        the copies against the kernel; the host waits on the last event
-        only. Returns the n_ok * sb decoded bytes as a numpy array (a view
-        of host's buffer until the next batch)."""
+        come back into host's pinned buffer "decoded", all on the current
+        stream; the host waits for the stream once, at the end. Returns
+        the n_ok * sb decoded bytes as a numpy array (a view of host's
+        buffer until the next batch)."""
         nb = sb // (256 * bpp)
-        args = prep["args"]
+        args, n = prep["args"], prep["n_ok"]
         if self.device.type != "cuda":
-            return decode_rows(*args, bpp, nb).reshape(-1).numpy()
-        ev = [torch.cuda.Event(enable_timing=timing is not None)
-              for _ in range(4)]
-        ev[0].record()
-        dev = [a.to(self.device, non_blocking=True) for a in args]
-        ev[1].record()
-        dec = decode_rows(*dev, bpp, nb)
-        ev[2].record()
+            with trace.span("stn.k2", nbytes=n * sb, superblocks=n):
+                return decode_rows(*args, bpp, nb).reshape(-1).numpy()
+        with trace.span("stn.h2d", self.device) as h2d:
+            dev = [a.to(self.device, non_blocking=True) for a in args]
+        with trace.span("stn.k2", self.device, nbytes=n * sb,
+                        superblocks=n) as k2:
+            dec = decode_rows(*dev, bpp, nb)
         out = host.get("decoded", dec.numel())
-        out.copy_(dec.view(-1), non_blocking=True)
-        ev[3].record()
-        ev[3].synchronize()
+        with trace.span("stn.d2h", self.device, nbytes=n * sb) as d2h:
+            out.copy_(dec.view(-1), non_blocking=True)
+        torch.cuda.current_stream(self.device).synchronize()
         if timing is not None:
-            prep["times"].update(h2d_ms=ev[0].elapsed_time(ev[1]),
-                                 k2_ms=ev[1].elapsed_time(ev[2]),
-                                 d2h_ms=ev[2].elapsed_time(ev[3]))
+            prep["times"].update(h2d_ms=h2d.device_ms(),
+                                 k2_ms=k2.device_ms(),
+                                 d2h_ms=d2h.device_ms())
         return out.numpy()
 
 
@@ -283,7 +289,8 @@ def resolve(engine, device):
 # to when this is a list: the host pass on its thread (unpack_ms, parse_ms),
 # how long the decode waited for it (wait_ms), on a CUDA device h2d_ms,
 # k2_ms and d2h_ms by CUDA events, how long it waited for the batch
-# before's copy into the output (out_wait_ms) and that copy (out_ms)
+# before's copy into the output (out_wait_ms) and that copy (out_ms), each
+# the time of a span of utils/trace.py; set, it also turns that recorder on
 timing = None
 
 # threads of the host pass (libzstd, the parse): native, the GIL released
@@ -309,41 +316,40 @@ def prepare_blocks(frame: np.ndarray, items, bpp: int, sb: int, bufs):
     from .native import load
 
     native = load()
-    t0 = time.perf_counter()
-    spans = np.array([it[1:3] for it in items], np.int64).reshape(-1, 2)
-    srcs = frame.ctypes.data + spans[:, 0]
-    lens = spans[:, 1].copy()
-    zst = np.array([i for i, it in enumerate(items) if it[0] != METHOD_BLOCK],
-                   np.int64)
-    n_ok = len(items)
-    if len(zst):
-        res, starts, n_z = native.zstd_unpack(srcs[zst], lens[zst],
-                                              MAX_BLOCK_BYTES, HOST_THREADS)
-        srcs[zst[:n_z]] = res.ctypes.data + starts[:n_z]
-        lens[zst[:n_z]] = np.diff(starts[: n_z + 1])
-        if n_z < len(zst):
-            n_ok = int(zst[n_z])
-    t1 = time.perf_counter()
+    with trace.span("stn.unpack", superblocks=len(items)) as unpack:
+        spans = np.array([it[1:3] for it in items], np.int64).reshape(-1, 2)
+        srcs = frame.ctypes.data + spans[:, 0]
+        lens = spans[:, 1].copy()
+        zst = np.array([i for i, it in enumerate(items)
+                        if it[0] != METHOD_BLOCK], np.int64)
+        n_ok = len(items)
+        if len(zst):
+            res, starts, n_z = native.zstd_unpack(
+                srcs[zst], lens[zst], MAX_BLOCK_BYTES, HOST_THREADS)
+            srcs[zst[:n_z]] = res.ctypes.data + starts[:n_z]
+            lens[zst[:n_z]] = np.diff(starts[: n_z + 1])
+            if n_z < len(zst):
+                n_ok = int(zst[n_z])
     m = n_ok
     P = sb // 256
     srcs, lens = srcs[:m], lens[:m]
     rb = _up16(int(lens.max()) + 32) if m else 16
-    while m:
-        vb = bufs.get("vbufs", m * rb).view(m, rb)
-        po = bufs.get("plane_off", m * P * 4).view(torch.int32).view(m, P)
-        rt = bufs.get("rowtab", m * 16 * P * 4).view(torch.int32).view(
-            m, 16, P)
-        i, err = native.parse_rows_ptrs(
-            srcs, lens, bpp, sb, rb, vb.numpy(), po.numpy(), rt.numpy(),
-            np.empty(m, np.int64), HOST_THREADS)
-        wide = _up16(int(lens.max()) + sb + 16)
-        if err == ERROR_INVALID_INPUT and rb < wide:
-            rb = wide  # LZ inlining grew a stream past its row: once wider
-            continue
-        n_ok = i
-        break
-    times = {"unpack_ms": (t1 - t0) * 1e3,
-             "parse_ms": (time.perf_counter() - t1) * 1e3}
+    with trace.span("stn.parse", superblocks=m) as parse:
+        while m:
+            vb = bufs.get("vbufs", m * rb).view(m, rb)
+            po = bufs.get("plane_off", m * P * 4).view(torch.int32).view(m, P)
+            rt = bufs.get("rowtab", m * 16 * P * 4).view(torch.int32).view(
+                m, 16, P)
+            i, err = native.parse_rows_ptrs(
+                srcs, lens, bpp, sb, rb, vb.numpy(), po.numpy(), rt.numpy(),
+                np.empty(m, np.int64), HOST_THREADS)
+            wide = _up16(int(lens.max()) + sb + 16)
+            if err == ERROR_INVALID_INPUT and rb < wide:
+                rb = wide  # LZ inlining grew a stream past its row: once wider
+                continue
+            n_ok = i
+            break
+    times = {"unpack_ms": unpack.host_ms, "parse_ms": parse.host_ms}
     args = None
     if n_ok:
         args = (vb[:n_ok], po[:n_ok], rt[:n_ok])
@@ -426,19 +432,27 @@ def decompress_frame_batched(frame, bpp: int, engine=None,
     bufs = [Staging(dev), Staging(dev)]
     uploaded = [None, None]  # the event behind each set's last upload
     outs = []
-    for k, i in enumerate(range(0, len(items), per)):
-        batch = items[i : i + per]
-        if uploaded[k % 2] is not None:
-            uploaded[k % 2].synchronize()
-        prep = prepare_blocks(frame, batch, bpp, sb, bufs[k % 2])
-        if prep["n_ok"] < len(batch):
-            return None
-        with engine.lock:
-            args = [a.to(dev, non_blocking=True) for a in prep["args"]]
-            if dev.type == "cuda":
-                uploaded[k % 2] = torch.cuda.Event()
-                uploaded[k % 2].record()
-            outs.append(decode_rows(*args, bpp, nb).view(-1))
+    with trace.span("stn.decompress_frame_batched", nbytes=len(items) * sb,
+                    superblocks=len(items)):
+        for k, i in enumerate(range(0, len(items), per)):
+            batch = items[i : i + per]
+            if uploaded[k % 2] is not None:
+                with trace.span("stn.upload_wait"):
+                    uploaded[k % 2].synchronize()
+            with trace.span("stn.host_pass", superblocks=len(batch)):
+                prep = prepare_blocks(frame, batch, bpp, sb, bufs[k % 2])
+            if prep["n_ok"] < len(batch):
+                return None
+            with engine.lock:
+                with trace.span("stn.h2d", dev):
+                    args = [a.to(dev, non_blocking=True)
+                            for a in prep["args"]]
+                if dev.type == "cuda":
+                    uploaded[k % 2] = torch.cuda.Event()
+                    uploaded[k % 2].record()
+                with trace.span("stn.k2", dev, nbytes=len(batch) * sb,
+                                superblocks=len(batch)):
+                    outs.append(decode_rows(*args, bpp, nb).view(-1))
     return outs
 
 
@@ -487,5 +501,10 @@ def compress_frame_device(data, bpp: int, level: int):
     Returns (frame (capacity,) uint8, length): the frame is frame[:length];
     length is a 0-d int64 tensor on the device (no device-to-host copy)."""
     n_sb, sb = data.shape
-    return encode_superblocks_frame(
-        data, bpp, 2, frame_header_bytes(n_sb * sb, sb, bpp, level))
+    with trace.span("stn.compress_frame_device", nbytes=n_sb * sb,
+                    superblocks=n_sb):
+        return encode_superblocks_frame(
+            data, bpp, 2, frame_header_bytes(n_sb * sb, sb, bpp, level))
+
+
+trace.switch(sys.modules[__name__])

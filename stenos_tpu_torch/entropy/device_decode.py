@@ -43,7 +43,7 @@ kernel fault never turns into host work.
 
 import contextlib
 import os
-import time
+import sys
 import warnings
 
 import numpy as np
@@ -52,6 +52,7 @@ import torch
 from .. import native
 from ..constants import ERROR_INVALID_INPUT
 from ..frame import StenosError
+from ..utils import trace
 from .huff_decode_kernel import decode_streams
 from .huff_kernel import STREAM, WOUT_WORDS
 from .seq_exec import execute
@@ -63,8 +64,13 @@ BLOCK_MAX = 131072
 host_ladder = 0
 
 # seconds by step of the decode, summed over calls, when set to a dict
-# (chip_smoke.py does); each step then ends in a device synchronize
+# (chip_smoke.py does): each step is a span of utils/trace.py, and setting
+# this also turns that recorder on. _HOST_STEPS take the host's time; on a
+# CUDA device the others take their CUDA events' time, added by settle()
+# once the call has waited for the card
 timing = None
+_HOST_STEPS = ("host_pass", "frame_out")
+_unsettled = []  # (step, span) of device steps not yet added to timing
 
 # the most threads of the native host pass
 HOST_THREADS = min(8, os.cpu_count() or 1)
@@ -73,15 +79,26 @@ _LADDER, _CORRUPT = 1, 2  # its payload statuses
 
 @contextlib.contextmanager
 def step(name, device):
-    """Adds the step's time to timing[name] when timing is a dict."""
-    if timing is None:
+    """The span "stn.zstd.<name>" around the step; its time goes to
+    timing[name] when timing is a dict (see there)."""
+    on_card = device.type == "cuda" and name not in _HOST_STEPS
+    with trace.span("stn.zstd." + name, device if on_card else None) as s:
         yield
-        return
-    t0 = time.perf_counter()
-    yield
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    timing[name] = timing.get(name, 0.0) + time.perf_counter() - t0
+    if timing is not None:
+        if on_card:
+            _unsettled.append((name, s))
+        else:
+            timing[name] = timing.get(name, 0.0) + s.host_ms / 1e3
+
+
+def settle():
+    """Add the device steps' event times to timing. It waits for the
+    events it reads: the frame layer calls it once its copy of a batch's
+    output has waited for the card, decode_payloads_device at its end."""
+    while _unsettled:
+        name, s = _unsettled.pop(0)
+        if timing is not None:
+            timing[name] = timing.get(name, 0.0) + s.device_ms() / 1e3
 
 
 def _corrupt():
@@ -249,6 +266,7 @@ def decode_payloads_device(payloads, dsizes, device="cuda"):
     with step("host_pass", device):
         prepared = prepare(buf, offs, lens, dsizes)
     ok = decode_prepared(buf, dsizes, prepared, out)
+    settle()
     res, o = [], 0
     for good, d in zip(ok, dsizes):
         res.append(out[o : o + d] if good else None)
@@ -260,3 +278,6 @@ def decode_payload_device(payload, dsize: int, device="cuda"):
     """One payload (see decode_payloads_device): (dsize,) uint8 on device or
     None (the host ladder)."""
     return decode_payloads_device([payload], [dsize], device)[0]
+
+
+trace.switch(sys.modules[__name__])

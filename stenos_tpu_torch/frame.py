@@ -47,6 +47,7 @@ from .host import zstd as zstd_host
 from .host.lz4dry import lz4_guess_ratio, lz4_guess_size
 from .ops.delta import delta_inv_np, delta_np
 from .ops.shuffle import shuffle_np, unshuffle_np
+from .utils import trace
 from .utils.demote import warn_once
 
 # engine="auto" takes the device at or above these input sizes (the JAX
@@ -701,7 +702,8 @@ def compress(data, bytesoftype: int, level: int = 1, dst_size=None,
                 device=device)
 
         n_sb = -(-nbytes // sb)
-        with ThreadPoolExecutor(max_workers=threads) as ex:
+        with trace.span("stn.superblocks", nbytes=nbytes, superblocks=n_sb), \
+                ThreadPoolExecutor(max_workers=threads) as ex:
             futs = [None if pre is not None and pre[i] is None
                     else ex.submit(one, i) for i in range(n_sb)]
             here = {i: one(i) for i, f in enumerate(futs) if f is None}
@@ -711,16 +713,20 @@ def compress(data, bytesoftype: int, level: int = 1, dst_size=None,
             pos += len(blob)
             if pos > dst_size:
                 raise StenosError(ERROR_DST_OVERFLOW)
-        return b"".join(out + blobs)
-    for i, off in enumerate(range(0, nbytes, sb)):
-        chunk = data[off : off + sb]
-        blob = compress_superblock(
-            chunk, bytesoftype, level, dst_size - pos, engine,
-            precomputed=None if pre is None else pre[i], entropy=entropy,
-            lz_table=lz_tab, device=device)
-        out.append(blob)
-        pos += len(blob)
-    return b"".join(out)
+        with trace.span("stn.join", nbytes=pos):
+            return b"".join(out + blobs)
+    with trace.span("stn.superblocks", nbytes=nbytes,
+                    superblocks=-(-nbytes // sb)):
+        for i, off in enumerate(range(0, nbytes, sb)):
+            chunk = data[off : off + sb]
+            blob = compress_superblock(
+                chunk, bytesoftype, level, dst_size - pos, engine,
+                precomputed=None if pre is None else pre[i], entropy=entropy,
+                lz_table=lz_tab, device=device)
+            out.append(blob)
+            pos += len(blob)
+    with trace.span("stn.join", nbytes=pos):
+        return b"".join(out)
 
 
 def get_info(frame, bytesoftype: int):
@@ -793,13 +799,13 @@ class _Batcher:
         self.nbytes += dsize
 
     def _start(self):
-        """Start the gathered batch's host pass on a thread, then finish the
-        batch before it."""
+        """Start the gathered batch's host pass on a thread (its span a
+        child of this thread's), then finish the batch before it."""
         global _prep_pool
         items, self.items, self.nbytes = self.items, [], 0
         if _prep_pool is None:
             _prep_pool = ThreadPoolExecutor(1)
-        fut = _prep_pool.submit(self._prepare, items)
+        fut = _prep_pool.submit(self._host_pass, items, trace.current())
         prev, self.pending = self.pending, (items, fut)
         if prev:
             try:
@@ -817,6 +823,11 @@ class _Batcher:
         prev, self.pending = self.pending, None
         if prev:
             self._finish(*prev)
+
+    def _host_pass(self, items, parent):
+        with trace.span("stn.host_pass", parent=parent,
+                        superblocks=len(items)):
+            return self._prepare(items)
 
 
 class _ZstdChunk(_Batcher):
@@ -851,7 +862,7 @@ class _ZstdChunk(_Batcher):
         return h.numpy()
 
     def _finish(self, items, fut):
-        from .entropy.device_decode import decode_prepared, step
+        from .entropy.device_decode import decode_prepared, settle, step
 
         dev = self.device
         with step("host_pass", dev):  # the part not hidden behind the last
@@ -860,6 +871,7 @@ class _ZstdChunk(_Batcher):
         ok = decode_prepared(buf, dsizes, prepared, dev_out, self.staging)
         with step("d2h_output", dev):
             host = self._host_buffer(dev_out) if any(ok) else None
+        settle()
         with step("frame_out", dev):
             o = 0
             run = None  # [out, host, bytes]: device-decoded METHOD_ZSTD
@@ -940,9 +952,9 @@ class _BlockChunk(_Batcher):
             self._copied()
 
     def _finish(self, items, fut):
-        t0 = time.perf_counter()
-        bufs, prep = fut.result()
-        prep["times"]["wait_ms"] = (time.perf_counter() - t0) * 1e3
+        with trace.span("stn.prep_wait") as wait:
+            bufs, prep = fut.result()
+        prep["times"]["wait_ms"] = wait.host_ms
         self._decode(items, bufs, prep)
 
     def _copied(self):
@@ -966,20 +978,21 @@ class _BlockChunk(_Batcher):
                     runs[-1][2] += sb
                 else:
                     runs.append([w, i * sb, sb])
-            t0 = time.perf_counter()
-            self._copied()  # the batch before: its buffer is the next one
+            with trace.span("stn.out_wait") as wait:
+                self._copied()  # the batch before: its buffer is the next
             times = prep["times"]
-            times["out_wait_ms"] = (time.perf_counter() - t0) * 1e3
+            times["out_wait_ms"] = wait.host_ms
 
-            def copy():
-                t1 = time.perf_counter()
-                for run in runs:
-                    _put(self.out, run, host)
-                times["out_ms"] = (time.perf_counter() - t1) * 1e3
+            def copy(parent):
+                with trace.span("stn.out_copy", parent=parent,
+                                nbytes=n * sb, superblocks=n) as c:
+                    for run in runs:
+                        _put(self.out, run, host)
+                times["out_ms"] = c.host_ms
 
             if _out_pool is None:
                 _out_pool = ThreadPoolExecutor(1)
-            self.copy = _out_pool.submit(copy)
+            self.copy = _out_pool.submit(copy, trace.current())
             if engine.timing is not None:
                 engine.timing.append({"superblocks": n, "times": times})
         if n < len(items):

@@ -43,6 +43,7 @@ import torch
 
 from ..codec.analyze import analyze_planes_torch, plane_kinds_torch
 from ..codec.emit import block_header_bytes_torch, plane_sections_torch
+from ..utils import trace
 from . import _cuda
 from .compact import compact
 
@@ -236,10 +237,15 @@ def place_records_plain(rows, totals, header: bytes, nb: int, bpp: int):
 def encode_superblocks_frame_plain(data, bpp: int, block_level: int,
                                    header: bytes):
     """Plain torch version of the frame layout: the index mode's records
-    placed behind the header by place_records_plain."""
-    rows, totals = encode_superblocks_index_plain(data, bpp, block_level)[:2]
-    return place_records_plain(rows, totals - 4, header,
-                               data.shape[1] // (256 * bpp), bpp)
+    placed behind the header by place_records_plain (each step under the
+    span of the launch it stands for)."""
+    with trace.span("stn.k1.launch", nbytes=data.numel(),
+                    superblocks=data.shape[0]):
+        rows, totals = encode_superblocks_index_plain(data, bpp,
+                                                      block_level)[:2]
+    with trace.span("stn.place_records.launch", superblocks=data.shape[0]):
+        return place_records_plain(rows, totals - 4, header,
+                                   data.shape[1] // (256 * bpp), bpp)
 
 
 def _check_args(name, data, bpp, block_level):
@@ -284,13 +290,15 @@ def _encode_rows(data, bpp: int, block_level: int, row_w: int, rec: int,
     fsizes = torch.empty((n_sb, nb), dtype=torch.int32, device=dev)
     plane_off = (torch.empty((n_sb, bpp * nb), dtype=torch.int32, device=dev)
                  if index else None)
-    _cuda.check(lib.stenos_encode_superblocks(
-        data.data_ptr(), n_sb, nb, bpp, block_level, rows.data_ptr(), row_w,
-        rec, int(zero_tail), totals.data_ptr(), bsizes.data_ptr(),
-        fsizes.data_ptr(), plane_off.data_ptr() if index else None,
-        plan["tile_blocks"], plan["pad"], plan["stage_bytes"],
-        plan["win_off"], plan["codes_off"], plan["smem"],
-        torch.cuda.current_stream(dev).cuda_stream), "encode_superblocks")
+    with trace.span("stn.k1.launch", dev, nbytes=n_sb * sbytes,
+                    superblocks=n_sb):
+        _cuda.check(lib.stenos_encode_superblocks(
+            data.data_ptr(), n_sb, nb, bpp, block_level, rows.data_ptr(),
+            row_w, rec, int(zero_tail), totals.data_ptr(), bsizes.data_ptr(),
+            fsizes.data_ptr(), plane_off.data_ptr() if index else None,
+            plan["tile_blocks"], plan["pad"], plan["stage_bytes"],
+            plan["win_off"], plan["codes_off"], plan["smem"],
+            torch.cuda.current_stream(dev).cuda_stream), "encode_superblocks")
     _count(index)
     return rows, totals, bsizes, fsizes, plane_off
 
@@ -308,11 +316,12 @@ def _place_records(rows, totals, header: bytes, nb: int, bpp: int):
     frame = torch.empty(cap, dtype=torch.uint8, device=dev)
     length = torch.empty((), dtype=torch.int64, device=dev)
     h = header.ljust(16, b"\0")
-    _cuda.check(lib.stenos_place_records(
-        rows.data_ptr(), rows.shape[1], totals.data_ptr(), n_sb,
-        frame.data_ptr(), cap, int.from_bytes(h[:8], "little"),
-        int.from_bytes(h[8:], "little"), len(header), length.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream), "place_records")
+    with trace.span("stn.place_records.launch", dev, superblocks=n_sb):
+        _cuda.check(lib.stenos_place_records(
+            rows.data_ptr(), rows.shape[1], totals.data_ptr(), n_sb,
+            frame.data_ptr(), cap, int.from_bytes(h[:8], "little"),
+            int.from_bytes(h[8:], "little"), len(header), length.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream), "place_records")
     _count(False)
     return frame, length
 
@@ -321,7 +330,9 @@ def encode_superblocks(data, bpp: int, block_level: int):
     """The wrapper: the CUDA kernel for a CUDA tensor, the plain version for
     a CPU tensor (see the module docstring for the outputs)."""
     if data.device.type == "cpu":
-        return encode_superblocks_plain(data, bpp, block_level)
+        with trace.span("stn.k1.launch", nbytes=data.numel(),
+                        superblocks=data.shape[0]):
+            return encode_superblocks_plain(data, bpp, block_level)
     _check_args("encode_superblocks", data, bpp, block_level)
     nb = data.shape[1] // (256 * bpp)
     rows, totals, bsizes, fsizes, _ = _encode_rows(
