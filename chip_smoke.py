@@ -231,21 +231,50 @@ def zeros_past(rows, totals):
     return not rows[past].any()
 
 
+def dirty_block(nbytes, dev):
+    """Fill nbytes of device memory with 0xFF and free them: with the
+    allocator's other free blocks released first, it hands that block to the
+    next tensor of the size, so a byte a kernel leaves unwritten there reads
+    0xFF, not an earlier tensor's zero. Returns the block's address (on the
+    CPU, None)."""
+    if dev.type != "cuda":
+        return None
+    torch.cuda.empty_cache()
+    t = torch.full((nbytes,), 0xFF, dtype=torch.uint8, device=dev)
+    return t.data_ptr()
+
+
+def frame_on_dirty(fn, cap, dev, what):
+    """(frame, length) = fn() with a dirtied block of the frame's capacity
+    cap before it; checks that the frame took that block (on the card) and
+    that every byte past its length is zero."""
+    ptr = dirty_block(cap, dev)
+    frame, length = fn()
+    check(frame.numel() == cap and (ptr is None or frame.data_ptr() == ptr),
+          ("the frame did not take the dirtied block", *what))
+    check(not frame[int(length):].any(), ("frame padding", *what))
+    return frame, length
+
+
 def decode_err(k, p):
     check(k.shape == p.shape, "decode shape differs from the plain version")
     return int((k.int() - p.int()).abs().max())
 
 
-COUNTS = ((encode_kernel, "launches", "encode_blocks"),
-          (encode_kernel, "launches_index", "encode_blocks_index"),
-          (decode_kernel, "launches", "decode_rows"),
-          (decode_kernel, "launches_derive", "decode_rows_derive"),
-          (huff_kernel, "launches_histogram", "huff_histogram"),
-          (huff_kernel, "launches_encode", "huff_encode_streams"),
-          (huff_decode_kernel, "launches", "huff_decode_streams"),
-          (fse_kernel, "launches", "fse_encode"),
-          (seqdec_kernel, "launches", "seq_decode"),
-          (seq_exec, "launches", "seq_exec"))
+KERNEL_COUNTS = ((encode_kernel, "launches", "encode_blocks"),
+                 (encode_kernel, "launches_index", "encode_blocks_index"),
+                 (decode_kernel, "launches", "decode_rows"),
+                 (decode_kernel, "launches_derive", "decode_rows_derive"),
+                 (huff_kernel, "launches_histogram", "huff_histogram"),
+                 (huff_kernel, "launches_encode", "huff_encode_streams"),
+                 (huff_decode_kernel, "launches", "huff_decode_streams"),
+                 (fse_kernel, "launches", "fse_encode"),
+                 (seqdec_kernel, "launches", "seq_decode"),
+                 (seq_exec, "launches", "seq_exec"))
+# the kernels' launches and, counted apart, the frame-mode K1 launches that
+# zeroed a frame's capacity (also in encode_blocks)
+COUNTS = KERNEL_COUNTS + ((encode_kernel, "launches_frame_tail",
+                           "frame_tail"),)
 SOURCES = ("encode_blocks", "decode_rows", "huff_encode", "huff_decode",
            "fse_encode", "seq_decode", "seq_exec")
 
@@ -315,7 +344,7 @@ def phase_build():
 def phase_kernels(dev):
     """Each kernel against its plain version on the card, byte for byte."""
     rng = np.random.default_rng(2024)
-    err = {name: 0 for _, _, name in COUNTS}
+    err = {name: 0 for _, _, name in KERNEL_COUNTS}
 
     def record(name, e, what):
         err[name] = max(err[name], e)
@@ -333,12 +362,22 @@ def phase_kernels(dev):
             p = encode_kernel.encode_superblocks_plain(x, bpp, level)
             record("encode_blocks", encode_err(k, p), (bpp, kind, level))
             hdr = frame_header_bytes(n_sb * sb, sb, bpp, 1)
-            k = encode_kernel.encode_superblocks_frame(x, bpp, level, hdr)
+            cap = len(hdr) + n_sb * record_bound(nb, bpp)
+            k = frame_on_dirty(lambda: encode_kernel.encode_superblocks_frame(
+                x, bpp, level, hdr), cap, dev, (bpp, kind, level))
             p = encode_kernel.encode_superblocks_frame_plain(x, bpp, level,
                                                              hdr)
             check(int(k[1]) == int(p[1]), ("frame length", bpp, kind, level))
             record("encode_blocks", decode_err(k[0], p[0]),
                    (bpp, kind, level, "frame"))
+            # the public place_records, which zeroes the tail itself
+            rows, totals = encode_kernel.encode_superblocks_records(
+                x, bpp, level)[:2]
+            q = frame_on_dirty(lambda: encode_kernel.place_records(
+                rows, totals - 4, hdr, nb, bpp), cap, dev,
+                (bpp, kind, level, "place_records"))
+            check(int(q[1]) == int(p[1]) and torch.equal(q[0], k[0]),
+                  ("place_records frame", bpp, kind, level))
 
             p = encode_kernel.encode_superblocks_index_plain(x, bpp, level)
             for width in (None, record_bound(nb, bpp)):
@@ -388,7 +427,9 @@ def phase_kernels(dev):
     log(f"kernels == plain versions on the card: {n} decode cases over bpp "
         f"{GRID_BPP} x 3 and 1 superblocks x 5 kinds x levels 1,2; the "
         "encodes also at block level 0: encode_blocks as streams and as a "
-        "frame, encode_blocks_index at the longest record's width and at "
+        "frame (and place_records alone; both frames on a dirtied block, "
+        "zeros past the length), encode_blocks_index at the longest "
+        "record's width and at "
         "record_bound (zeros past every record), "
         "decode_rows_derive in 'jb' and 'bj' order")
     huff_grid(rng, dev, record)
@@ -1059,6 +1100,11 @@ def phase_sharding(dev, raw, frames, card):
             check(res["launches"][f"mesh device frame {name}"]
                   ["encode_blocks"] == 2, f"mesh device frame {name}: not "
                   "two K1 launches (records, place_records)")
+            # the ragged segment's K1 zeroes its tail, the gathered
+            # variant's place_records its own
+            check(res["launches"][f"mesh device frame {name}"]
+                  ["frame_tail"] == (name == "ragged"),
+                  f"mesh device frame {name}: frame-mode K1 launches")
             check(frame[:length].cpu().numpy().tobytes() == frames[1],
                   f"compress_device_sharded ({name}) differs from "
                   "compress_frame_device")
@@ -1369,15 +1415,16 @@ def phase_device(dev, raw, frame1):
     torch.cuda.synchronize()
     fc_s = time.perf_counter() - t0
     res["launches"]["frame_compress"] = read_counts()
+    check(res["launches"]["frame_compress"]["frame_tail"] == 1,
+          "compress_frame_device: K1 did not zero the frame's tail")
     got = frame[: int(length)].cpu().numpy().tobytes()
     check(np.array_equal(stt.decompress(got, 4, device=dev), raw),
           "compress_frame_device round trip")
     check(got == frame1, "compress_frame_device differs from the level-1 "
           "host-path frame")
     # the frame layout of K1 against the plain version's records
-    hdr = fr.get_info(frame1, 4)[2]
     keep = torch.arange(plain[0].shape[1], device=dev) < plain[1][:, None]
-    want = torch.cat([frame[:hdr], plain[0][keep]])
+    want = torch.cat([frame[:fr.get_info(frame1, 4)[2]], plain[0][keep]])
     check(want.numel() == int(length) and not frame[int(length):].any(),
           "device frame length or padding")
     err["encode_blocks"] = int((frame[: int(length)].int()
@@ -1385,28 +1432,57 @@ def phase_device(dev, raw, frame1):
     check(err["encode_blocks"] == 0, "device frame differs from the plain "
           "version's records")
     del frame, plain, keep, want
+    # the same call on a block the allocator hands back dirtied, apart from
+    # the timed first call: the same frame, zeros past it
+    hdr = frame_header_bytes(len(raw), sb, 4, 1)
+    cap = len(hdr) + n_sb * record_bound(nb, 4)
+    frame, length = frame_on_dirty(lambda: compress_frame_device(x, 4, 1),
+                                   cap, dev, ("compress_frame_device",
+                                              HEADLINE_MB))
+    check(int(length) == len(got)
+          and frame[: len(got)].cpu().numpy().tobytes() == got,
+          "compress_frame_device on a dirtied block differs")
+    del frame
     warm_ms = cuda_ms(lambda: compress_frame_device(x, 4, 1), 3)
-    # its two launches apart: the records into rows, then place_records
+    # its two launches apart, as the frame mode makes them (K1 zeroes the
+    # frame, place_records moves the records) and as the public
+    # place_records does (it zeroes the tail after K1's records mode)
     rb = record_bound(nb, 4)
+    fbuf = torch.empty(cap, dtype=torch.uint8, device=dev)
     rows_t, tot_t = encode_kernel._encode_rows(x, 4, 2, rb, 4, False,
                                                False)[:2]
     launch_ms = [
-        cuda_ms(lambda: encode_kernel._encode_rows(x, 4, 2, rb, 4, False,
-                                                   False), 3),
+        cuda_ms(lambda: encode_kernel._encode_rows(
+            x, 4, 2, rb, 4, False, False, fbuf, len(hdr)), 10),
         cuda_ms(lambda: encode_kernel._place_records(
-            rows_t, tot_t, frame_header_bytes(len(raw), sb, 4, 1), nb, 4),
-            3)]
-    del rows_t, tot_t
+            rows_t, tot_t, hdr, nb, 4, fbuf), 10)]
+    apart_ms = [
+        cuda_ms(lambda: encode_kernel._encode_rows(x, 4, 2, rb, 4, False,
+                                                   False), 10),
+        cuda_ms(lambda: encode_kernel._place_records(rows_t, tot_t, hdr, nb,
+                                                     4), 10)]
+    del fbuf
+    placed, placed_len = frame_on_dirty(lambda: encode_kernel.place_records(
+        rows_t, tot_t, hdr, nb, 4), cap, dev, ("place_records", HEADLINE_MB))
+    check(int(placed_len) == len(got)
+          and placed[: len(got)].cpu().numpy().tobytes() == got,
+          "place_records alone differs from compress_frame_device")
+    del rows_t, tot_t, placed
     res["frame_compress"] = {"s": fc_s, "gbps": len(raw) / fc_s / 1e9,
                              "warm_ms": warm_ms,
                              "warm_gbps": len(raw) / warm_ms / 1e6,
-                             "launch_ms": launch_ms, "bytes": len(got)}
+                             "launch_ms": launch_ms,
+                             "apart_ms": apart_ms, "bytes": len(got)}
     log(f"compress_frame_device {HEADLINE_MB} MiB level 1: first call "
         f"{fc_s:.4f} s = {res['frame_compress']['gbps']:.4f} GB/s, warm "
         f"{warm_ms:.4f} ms = {res['frame_compress']['warm_gbps']:.4f} GB/s "
-        f"(encode {launch_ms[0]:.4f} + place_records {launch_ms[1]:.4f} ms); "
-        "frame == the host-path frame and the plain version's records, "
-        f"decodes to the input; launches {res['launches']['frame_compress']}")
+        f"(encode and tail {launch_ms[0]:.4f} + place_records "
+        f"{launch_ms[1]:.4f} ms; K1 records mode {apart_ms[0]:.4f} + "
+        f"place_records zeroing the tail {apart_ms[1]:.4f} ms); frame == "
+        "the host-path frame and the plain version's records, zeros past "
+        "it, decodes to the input; again on a dirtied block and from "
+        "place_records alone: the same frame, zeros past it; launches "
+        f"{res['launches']['frame_compress']}")
     for name, t in times.items():
         log(f"{name} at {HEADLINE_MB} MiB (one call, {n_sb} slabs): "
             + ", ".join(f"{k} {v:.4f}" if isinstance(v, float)

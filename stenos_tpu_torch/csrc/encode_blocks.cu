@@ -36,20 +36,31 @@
 //   - Each tile's output is built in shared memory at the phase of its
 //     place in device memory and stored as one span: 16-byte stores, bytes
 //     at the ragged ends. No per-plane slot buffer goes to device memory.
+//   - Frame mode: CTA s first zeroes slot s of the frame's capacity (the
+//     record bound behind the header) with 16-byte stores; the other CTAs
+//     of its SM analyse meanwhile. place_records then moves only the
+//     records (the zeros under them are written twice). On an H100 this
+//     adds ~0.055 ms to K1's ~1.04 ms at 512 MiB and takes ~0.20 ms off
+//     place_records; a slice of the slot after each tile's flush cost
+//     0.12 ms and spilled.
 // place_records (frame mode only): one CTA per record copies it from its
 //   row to its place behind the frame header (its base is the sum of the
-//   records before it), zero-fills its share of the frame's tail, and CTA 0
-//   writes the header and the frame length. A record's base is known only
-//   once every earlier superblock is encoded; a second launch costs the
-//   records' bytes twice (~118 MB at 512 MiB of sorted int32) where one
-//   launch would have to hold each whole record (up to ~128 KiB) on chip
-//   while it waits for the superblocks before it.
+//   records before it), and CTA 0 writes the header and the frame length.
+//   Called on its own (zero_tail: no K1 zeroed the frame) it also zero-fills
+//   its share of the tail past the frame's length. A record's base is known
+//   only once every earlier superblock is encoded; a second launch costs
+//   the records' bytes twice (~118 MB at 512 MiB of sorted int32). The step
+//   left is to fold it into K1's frame mode: each CTA finds its base by a
+//   decoupled look-back over the totals of the CTAs before it and copies
+//   its record, still in L2, at its end.
 //
 // Bound: integer instructions and their latency, not bytes. The row analysis
 // alone is ~11 32-bit integer instructions an input byte (plane decisions and
 // emission come on top): at 64 integer lanes a clock an SM that is ~0.35 ms
 // for 512 MiB on an H100 SXM, against ~0.2 ms for its bytes at 3.35 TB/s (the
-// input, the records and the sizes, each once). The design gives every lane of a step work,
+// input, the records and the sizes, each once; in frame mode the frame's
+// capacity of zeros as well, ~538 MB more: ~0.36 ms for all its bytes, about
+// its integer bound). The design gives every lane of a step work,
 // holds a thread to 64 registers so that 4 CTAs (32 warps) share an SM and
 // hide one another's shuffle, shared-memory and barrier latency, overlaps
 // each tile's load with the previous tile's analysis, and writes every
@@ -346,13 +357,17 @@ struct Geometry {
 };
 
 // Row s of out (row_w bytes): [record header (rec = 4 bytes) | stream |
-// zeros up to row_w if zero_tail]. totals[s] is the stream length.
+// zeros up to row_w if zero_tail]. totals[s] is the stream length. Frame
+// mode (frame not null): CTA s first zeroes slot s of the frame's capacity
+// cap behind its hlen-byte header, [hlen + s*w, hlen + (s+1)*w) with w =
+// (cap - hlen) / n_sb, for place_records to write the records over.
 __global__ void __launch_bounds__(kThreads, 4)
 encode_superblocks(const uint8_t* __restrict__ data, int nb, int bpp,
                    int level, uint8_t* __restrict__ out, long long row_w,
                    int rec, int zero_tail, int* __restrict__ totals,
                    int* __restrict__ bsizes, int* __restrict__ fsizes,
-                   int* __restrict__ plane_off, Geometry geo) {
+                   int* __restrict__ plane_off, uint8_t* __restrict__ frame,
+                   long long cap, int hlen, Geometry geo) {
     extern __shared__ __align__(16) uint8_t smem[];
     __shared__ int s_ps[2][16];
     __shared__ int s_bstart[kMaxTile + 1];
@@ -388,6 +403,11 @@ encode_superblocks(const uint8_t* __restrict__ data, int nb, int bpp,
         total = __shfl_sync(kFull, incl, 15);
         ++step;
     };
+
+    if (frame) {  // frame mode: slot sb of the capacity behind the header
+        const long long w = (cap - hlen) / gridDim.x;
+        zero_fill(frame + hlen + sb * w, frame + hlen + (sb + 1) * w, t);
+    }
 
     if (geo.tile_blocks) {
         const int kb = geo.tile_blocks;
@@ -523,15 +543,16 @@ encode_superblocks(const uint8_t* __restrict__ data, int nb, int bpp,
 }
 
 // Frame mode: record s (rows[s, :totals[s] + 4]) goes behind the header at
-// hlen + the sum of the records before it; the tail up to cap is zeroed in
-// n_sb shares; CTA 0 writes the header (h0, h1 little-endian, hlen <= 16
-// bytes) and the frame length.
+// hlen + the sum of the records before it; if zero_tail, the tail up to cap
+// is zeroed in n_sb shares (else K1's frame mode has zeroed it); CTA 0
+// writes the header (h0, h1 little-endian, hlen <= 16 bytes) and the frame
+// length.
 __global__ void __launch_bounds__(kThreads)
 place_records(const uint8_t* __restrict__ rows, long long row_w,
               const int* __restrict__ totals, int n_sb,
               uint8_t* __restrict__ frame, long long cap,
               unsigned long long h0, unsigned long long h1, int hlen,
-              long long* __restrict__ length) {
+              int zero_tail, long long* __restrict__ length) {
     __shared__ long long s_red[2][kThreads / 32];
     const int t = threadIdx.x;
     const int s = blockIdx.x;
@@ -561,9 +582,11 @@ place_records(const uint8_t* __restrict__ rows, long long row_w,
     const uint8_t* rec = rows + s * row_w;
     uint8_t* dst = frame + hlen + before;
     copy_bytes(dst, rec, totals[s] + 4, t);
-    const long long share = (cap - len + n_sb - 1) / n_sb;
-    const long long z0 = min(cap, len + s * share);
-    zero_fill(frame + z0, frame + min(cap, z0 + share), t);
+    if (zero_tail) {
+        const long long share = (cap - len + n_sb - 1) / n_sb;
+        const long long z0 = min(cap, len + s * share);
+        zero_fill(frame + z0, frame + min(cap, z0 + share), t);
+    }
     if (s == 0) {
         if (t < hlen)
             frame[t] = (uint8_t)((t < 8 ? h0 >> (8 * t) : h1 >> (8 * (t - 8)))
@@ -578,14 +601,15 @@ place_records(const uint8_t* __restrict__ rows, long long row_w,
 // C interface (ctypes). Pointers are device pointers; the launch goes on
 // `stream`; the return value is cudaGetLastError() after the launch.
 
-// plane_off is null except in index mode; the geometry is the host's launch
-// plan (ops/encode_kernel.py launch_plan), smem its shared-memory bytes.
+// plane_off is null except in index mode, frame (cap bytes, hlen of them
+// the header) except in frame mode; the geometry is the host's launch plan
+// (ops/encode_kernel.py launch_plan), smem its shared-memory bytes.
 extern "C" int stenos_encode_superblocks(
         const void* data, long long n_sb, int nb, int bpp, int level,
         void* out, long long row_w, int rec, int zero_tail, void* totals,
-        void* bsizes, void* fsizes, void* plane_off, int tile_blocks,
-        int pad, int stage_bytes, int win_off, int codes_off, int smem,
-        void* stream) {
+        void* bsizes, void* fsizes, void* plane_off, void* frame,
+        long long cap, int hlen, int tile_blocks, int pad, int stage_bytes,
+        int win_off, int codes_off, int smem, void* stream) {
     const Geometry geo{tile_blocks, pad, stage_bytes, win_off, codes_off};
     cudaError_t e = cudaFuncSetAttribute(
         encode_superblocks, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -595,7 +619,7 @@ extern "C" int stenos_encode_superblocks(
                          (cudaStream_t)stream>>>(
         (const uint8_t*)data, nb, bpp, level, (uint8_t*)out, row_w, rec,
         zero_tail, (int*)totals, (int*)bsizes, (int*)fsizes, (int*)plane_off,
-        geo);
+        (uint8_t*)frame, cap, hlen, geo);
     return (int)cudaGetLastError();
 }
 
@@ -604,10 +628,11 @@ extern "C" int stenos_place_records(const void* rows, long long row_w,
                                     void* frame, long long cap,
                                     unsigned long long h0,
                                     unsigned long long h1, int hlen,
-                                    void* length, void* stream) {
+                                    int zero_tail, void* length,
+                                    void* stream) {
     place_records<<<(unsigned)n_sb, kThreads, 0, (cudaStream_t)stream>>>(
         (const uint8_t*)rows, row_w, (const int*)totals, (int)n_sb,
-        (uint8_t*)frame, cap, h0, h1, hlen, (long long*)length);
+        (uint8_t*)frame, cap, h0, h1, hlen, zero_tail, (long long*)length);
     return (int)cudaGetLastError();
 }
 #endif

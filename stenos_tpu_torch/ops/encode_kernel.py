@@ -29,9 +29,10 @@ copy: the sharded encode's rows (parallel/).
 
 encode_superblocks_frame(data, bpp, block_level, header) writes the records
 back to back behind a frame header, in one buffer (the device frame
-compress): the same kernel's records, then a second launch, place_records
-(a wrapper of its own too), that moves each to its place. Its plain version
-is encode_superblocks_frame_plain.
+compress): the same kernel's records, the frame's capacity zeroed by the
+same launch, then a second launch, place_records, that moves each record
+to its place. place_records is a wrapper of its own too, which zeroes the
+tail itself. Its plain version is encode_superblocks_frame_plain.
 
 The streams and index modes are one launch each. launch_plan gives the
 kernel's shared-memory geometry for a bpp.
@@ -49,9 +50,11 @@ from .compact import compact
 
 # launches of encode_superblocks (and, in frame mode, place_records) below
 # (chip_smoke.py reads these): K1's modes (streams, frame), and the index
-# mode (K1b), counted apart
+# mode (K1b), counted apart; launches_frame_tail counts the frame-mode K1
+# launches that zeroed the frame's capacity (also counted in launches)
 launches = 0
 launches_index = 0
+launches_frame_tail = 0
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
@@ -59,9 +62,10 @@ _I = ctypes.c_int
 _ULL = ctypes.c_ulonglong
 _SIGNATURES = {
     "stenos_encode_superblocks": [_P, _LL, _I, _I, _I, _P, _LL, _I, _I, _P,
-                                  _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "stenos_place_records": [_P, _LL, _P, _LL, _P, _LL, _ULL, _ULL, _I, _P,
-                             _P],
+                                  _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I,
+                                  _I, _I, _P],
+    "stenos_place_records": [_P, _LL, _P, _LL, _P, _LL, _ULL, _ULL, _I, _I,
+                             _P, _P],
 }
 
 SMEM_LIMIT = 232448  # shared memory a CTA can use on Hopper
@@ -269,11 +273,14 @@ def _count(index: bool):
 
 
 def _encode_rows(data, bpp: int, block_level: int, row_w: int, rec: int,
-                 zero_tail: bool, index: bool):
+                 zero_tail: bool, index: bool, frame=None, hlen: int = 0):
     """One launch of encode_superblocks: each superblock's stream (rec 0) or
     record (rec 4: [1, csize u24, stream]) at the start of its row of row_w
-    bytes, zeros after it when zero_tail. Returns (rows, stream totals,
-    bsizes, fsizes, plane_off or None)."""
+    bytes, zeros after it when zero_tail. Frame mode (a frame tensor, behind
+    an hlen-byte header): the same launch zeroes frame[hlen:], one slot of
+    (len(frame) - hlen) / n_sb bytes a superblock. Returns (rows, stream
+    totals, bsizes, fsizes, plane_off or None)."""
+    global launches_frame_tail
     lib = _cuda.load("encode_blocks", _SIGNATURES)
     dev = data.device
     n_sb, sbytes = data.shape
@@ -296,32 +303,49 @@ def _encode_rows(data, bpp: int, block_level: int, row_w: int, rec: int,
             data.data_ptr(), n_sb, nb, bpp, block_level, rows.data_ptr(),
             row_w, rec, int(zero_tail), totals.data_ptr(), bsizes.data_ptr(),
             fsizes.data_ptr(), plane_off.data_ptr() if index else None,
+            None if frame is None else frame.data_ptr(),
+            0 if frame is None else frame.numel(), hlen,
             plan["tile_blocks"], plan["pad"], plan["stage_bytes"],
             plan["win_off"], plan["codes_off"], plan["smem"],
             torch.cuda.current_stream(dev).cuda_stream), "encode_superblocks")
     _count(index)
+    if frame is not None:
+        launches_frame_tail += 1
     return rows, totals, bsizes, fsizes, plane_off
 
 
-def _place_records(rows, totals, header: bytes, nb: int, bpp: int):
+def _frame_buffer(header: bytes, n_sb: int, nb: int, bpp: int, dev):
+    """The frame's (capacity,) uint8 buffer, unwritten: len(header) + n_sb *
+    record_bound(nb, bpp) bytes."""
+    if len(header) > 16:
+        raise ValueError("encode_superblocks_frame: header longer than 16")
+    return torch.empty(len(header) + n_sb * record_bound(nb, bpp),
+                       dtype=torch.uint8, device=dev)
+
+
+def _place_records(rows, totals, header: bytes, nb: int, bpp: int,
+                   frame=None):
     """The frame mode's second launch: the records of rows (as
-    _encode_rows wrote them, rec 4) back to back behind header, the rest of
-    the frame's capacity zeroed. Returns (frame, length 0-d int64)."""
+    _encode_rows wrote them, rec 4) back to back behind header. Without a
+    frame it allocates one and zeroes the rest of its capacity; a frame
+    given has had frame[len(header):] zeroed by _encode_rows, and only
+    the header, the records and the length are written. Returns (frame,
+    length 0-d int64)."""
     lib = _cuda.load("encode_blocks", _SIGNATURES)
     dev = rows.device
     n_sb = rows.shape[0]
-    if len(header) > 16:
-        raise ValueError("encode_superblocks_frame: header longer than 16")
-    cap = len(header) + n_sb * record_bound(nb, bpp)
-    frame = torch.empty(cap, dtype=torch.uint8, device=dev)
+    zero_tail = frame is None
+    if zero_tail:
+        frame = _frame_buffer(header, n_sb, nb, bpp, dev)
     length = torch.empty((), dtype=torch.int64, device=dev)
     h = header.ljust(16, b"\0")
     with trace.span("stn.place_records.launch", dev, superblocks=n_sb):
         _cuda.check(lib.stenos_place_records(
             rows.data_ptr(), rows.shape[1], totals.data_ptr(), n_sb,
-            frame.data_ptr(), cap, int.from_bytes(h[:8], "little"),
-            int.from_bytes(h[8:], "little"), len(header), length.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream), "place_records")
+            frame.data_ptr(), frame.numel(), int.from_bytes(h[:8], "little"),
+            int.from_bytes(h[8:], "little"), len(header), int(zero_tail),
+            length.data_ptr(), torch.cuda.current_stream(dev).cuda_stream),
+            "place_records")
     _count(False)
     return frame, length
 
@@ -392,8 +416,9 @@ def place_records(rows, totals, header: bytes, nb: int, bpp: int):
     """The frame mode's second launch on its own (counted as K1): the
     records of rows (rows[i, :totals[i] + 4], totals counting the streams
     only) back to back behind header, zeros to the capacity len(header) +
-    n_sb * record_bound(nb, bpp). A CPU tensor takes place_records_plain.
-    Returns (frame, length 0-d int64)."""
+    n_sb * record_bound(nb, bpp), written by this launch (no K1 zeroed the
+    frame). A CPU tensor takes place_records_plain. Returns (frame, length
+    0-d int64)."""
     if rows.device.type == "cpu":
         return place_records_plain(rows, totals, header, nb, bpp)
     if (rows.device.type != "cuda" or rows.dtype != torch.uint8
@@ -411,11 +436,14 @@ def encode_superblocks_frame(data, bpp: int, block_level: int,
     stream] back to back behind `header`, in one buffer, with no
     device-to-host copy. Returns (frame (capacity,) uint8, length 0-d int64
     tensor): the frame is frame[:length], zeros follow; capacity is
-    len(header) + n_sb * record_bound(nb, bpp). Counted as K1 launches."""
+    len(header) + n_sb * record_bound(nb, bpp). Counted as K1 launches: K1
+    zeroes the capacity behind the header, place_records writes the header,
+    the records and the length over it."""
     if data.device.type == "cpu":
         return encode_superblocks_frame_plain(data, bpp, block_level, header)
     _check_args("encode_superblocks_frame", data, bpp, block_level)
     nb = data.shape[1] // (256 * bpp)
+    frame = _frame_buffer(header, data.shape[0], nb, bpp, data.device)
     rows, totals = _encode_rows(data, bpp, block_level, record_bound(nb, bpp),
-                                4, False, False)[:2]
-    return _place_records(rows, totals, header, nb, bpp)
+                                4, False, False, frame, len(header))[:2]
+    return _place_records(rows, totals, header, nb, bpp, frame)

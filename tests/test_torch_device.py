@@ -29,7 +29,8 @@ from stenos_tpu_torch.ops.decode_kernel import (decode_rows_derive,
                                                 derive_rowtab_plain)
 from stenos_tpu_torch.ops.encode_kernel import (encode_superblocks_index,
                                                 encode_superblocks_index_plain,
-                                                record_bound)
+                                                encode_superblocks_records,
+                                                place_records, record_bound)
 
 from conftest import gen_elements
 from test_lz_adoption import lz_trigger_bytes
@@ -323,6 +324,12 @@ def test_compress_frame_device_matches_jax(rng, bpp, sb, n_sb, kind):
     assert ref_frame.decompress(got, bpp).tobytes() == data
     # zeros past the frame, up to the capacity of n_sb record bounds
     assert not frame[int(length):].any()
-    hdr_len = len(frame_header_bytes(n_sb * sb, sb, bpp, 1))
-    assert frame.shape[0] == hdr_len + n_sb * record_bound(sb // (256 * bpp),
-                                                           bpp)
+    nb = sb // (256 * bpp)
+    hdr = frame_header_bytes(n_sb * sb, sb, bpp, 1)
+    assert frame.shape[0] == len(hdr) + n_sb * record_bound(nb, bpp)
+    # the public place_records (it zeroes the tail itself) on the records
+    # mode's rows: the same frame and zeros, to the same capacity
+    rows, totals = encode_superblocks_records(torch.from_numpy(batch.copy()),
+                                              bpp, 2)[:2]
+    placed, placed_len = place_records(rows, totals - 4, hdr, nb, bpp)
+    assert int(placed_len) == int(ref_len) and torch.equal(placed, frame)

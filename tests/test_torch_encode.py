@@ -9,6 +9,10 @@ ragged); interpret-mode Pallas is slow, so it runs on two of the shapes.
 The kernel's launch plan is checked for bpp 1-1024. Streams are compared
 up to totals (the padding is not part of the contract); sizes exactly."""
 
+import ctypes
+import os
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -18,7 +22,9 @@ import jax.numpy as jnp
 from stenos_tpu.engine_jax import encode_superblocks_jit
 from stenos_tpu.ops.encode_pallas import encode_slabs_body
 from stenos_tpu_torch import frame as fr
+from stenos_tpu_torch.ops import _cuda
 from stenos_tpu_torch.ops.encode_kernel import (SMEM_LIMIT, STAGE_MAX,
+                                                _SIGNATURES,
                                                 encode_superblocks,
                                                 encode_superblocks_plain,
                                                 launch_plan)
@@ -118,3 +124,24 @@ def test_launch_plan_fits_and_covers_every_block():
                 out = 16 * 256
             assert p["codes_off"] - p["win_off"] >= 15 + out, (bpp, nb, p)
             assert p["smem"] - p["codes_off"] >= (kb or 1) * bpp
+
+
+# C parameter types of csrc/encode_blocks.cu's entries -> ctypes argtypes
+_C_TYPES = {"void*": ctypes.c_void_p, "long long": ctypes.c_longlong,
+            "int": ctypes.c_int, "unsigned long long": ctypes.c_ulonglong}
+
+
+@pytest.mark.parametrize("fn", ["stenos_encode_superblocks",
+                                "stenos_place_records"])
+def test_signatures_match_the_source(fn):
+    """The ctypes argtypes of each entry have the count and order of the
+    parameters its C definition declares (a mismatch would pass arguments
+    in the wrong registers, unseen without the card)."""
+    with open(os.path.join(_cuda.CSRC, "encode_blocks.cu")) as f:
+        src = f.read()
+    m = re.search(r'extern "C" int ' + fn + r"\(([^)]*)\)", src)
+    assert m, fn
+    params = [" ".join(p.split()) for p in m.group(1).split(",")]
+    types = [re.sub(r"\s*\w+$", "", p).replace("const ", "")
+             for p in params]
+    assert [_C_TYPES[t] for t in types] == _SIGNATURES[fn]
