@@ -30,8 +30,11 @@ ranks (subprocesses of this script, --gloo-rank) on this one card on 64
 MiB, their results equal to this process's single-device ones; then the
 device-resident paths on the same 512 MiB: roundtrip_device,
 DeviceCompressedArray (build, reads, serialize, deserialize) and
-compress_frame_device; K2 and K2b timed at their paths' shapes beside
-their bounds; then DeviceCompressedArray(entropy=True) on 512 MiB of a
+compress_frame_device; compress_frame_device on 1-D float64 columns with
+every kind of end (phase_column: each frame the host path's, launches,
+short-superblock counters; a day's column against the 2-D frame of its
+whole superblocks, K1 and encode_short by events); K2 and K2b timed at
+their paths' shapes beside their bounds; then DeviceCompressedArray(entropy=True) on 512 MiB of a
 low-cardinality byte column (K4 and K5 timed at its build's, to_array's and
 one slab read's shapes) and on the sorted int32; then the device
 zstd entropy stage (phase_zstd): a grid of payloads and the 512 MiB text
@@ -90,6 +93,7 @@ from stenos_tpu_torch.entropy.match_device import match_candidates
 from stenos_tpu_torch.entropy.sequences import FRESH_REPS, encode_sequences
 from stenos_tpu_torch.ops import _cuda, decode_kernel, encode_kernel
 from stenos_tpu_torch.ops.encode_kernel import record_bound
+from stenos_tpu_torch.utils import trace
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 # 32-bit integer instructions a second: 132 SMs x 64 lanes a clock (the
@@ -272,9 +276,10 @@ KERNEL_COUNTS = ((encode_kernel, "launches", "encode_blocks"),
                  (seqdec_kernel, "launches", "seq_decode"),
                  (seq_exec, "launches", "seq_exec"))
 # the kernels' launches and, counted apart, the frame-mode K1 launches that
-# zeroed a frame's capacity (also in encode_blocks)
+# zeroed a frame's capacity (also in encode_blocks) and encode_short's
 COUNTS = KERNEL_COUNTS + ((encode_kernel, "launches_frame_tail",
-                           "frame_tail"),)
+                           "frame_tail"),
+                          (encode_kernel, "launches_short", "encode_short"))
 SOURCES = ("encode_blocks", "decode_rows", "huff_encode", "huff_decode",
            "fse_encode", "seq_decode", "seq_exec")
 
@@ -1491,6 +1496,130 @@ def phase_device(dev, raw, frame1):
     return res, times, err
 
 
+COLUMN_SAMPLES = 86_400_000 - 4321  # a day of 1 kHz float64 samples, cut
+
+
+def ts_column(dev, nbytes, seed=3):
+    """nbytes of float64 samples made on the card: 100 + a random walk of
+    N(0, 1e-3) steps + a daily and an hourly wave on a 1 kHz clock
+    (benchs/datasets.py's ts_f64)."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    m = -(-nbytes // 8)
+    t = torch.arange(m, device=dev, dtype=torch.float64)
+    v = torch.randn(m, generator=g, device=dev, dtype=torch.float64)
+    v = v.mul_(1e-3).cumsum_(0).add_(100.0)
+    v += (t * (2 * np.pi / 86.4e6)).sin_().mul_(0.5)
+    v += (t * (2 * np.pi / 3.6e6)).sin_().mul_(0.05)
+    return v.view(torch.uint8)[:nbytes]
+
+
+def phase_column(dev):
+    """compress_frame_device on 1-D float64 columns (bytesoftype 8, level
+    1) of every kind of end: none, whole blocks, a partial segment, a length
+    no multiple of 8, the small-input route (ZSTD and COPY), a column
+    shorter than a superblock: each frame the host path's and the CPU plain
+    version's, zeros past it, its launches (K1 and place_records, and
+    encode_short for a partial segment) and engine.short_superblocks*. Then
+    a day's column: its frame on a dirtied block, its records those of the
+    2-D frame of its whole superblocks and of its short superblock alone,
+    K1 by events beside that 2-D frame's, encode_short and the call."""
+    sb, blk = 131072, 2048
+    base = ts_column(dev, 8 * 300_000)
+    held = base[: sb + 120].clone()
+    held[-112:] = held[-120:-112].repeat(14)  # a held sample: ZSTD shrinks it
+    cases = {"whole": base[: 2 * sb], "whole_blocks": base[: sb + 3 * blk],
+             "partial": base[: sb + 3 * blk + 704],
+             "not_multiple_of_8": base[: 3 * sb + blk + 701],
+             "partial_no_line": base[: sb + blk + 56],
+             "small_copy": base[: sb + 100], "small_zstd": held,
+             "shorter_than_a_superblock": base[:5000],
+             "small_column": base[:100], "longest_short": base[: 2 * sb - 1]}
+    res = {"launches": {}}
+    for name, col in cases.items():
+        col = col.contiguous()
+        n = col.numel()
+        n_full, r = divmod(n, sb)
+        reset_counts()
+        short0 = (eng.short_superblocks, eng.short_superblocks_small)
+        frame, length = compress_frame_device(col, 8, 1)
+        counts = read_counts()
+        res["launches"][name] = counts
+        short = (eng.short_superblocks - short0[0],
+                 eng.short_superblocks_small - short0[1])
+        got = frame[: int(length)].cpu().numpy().tobytes()
+        check(got == fr.compress(col.cpu().numpy(), 8, 1, engine=None),
+              f"column {name}: differs from the host path's frame")
+        plain, plain_len = compress_frame_device(col.cpu(), 8, 1)
+        check(int(plain_len) == int(length)
+              and torch.equal(frame.cpu(), plain),
+              f"column {name}: differs from the CPU plain version")
+        check(not frame[int(length):].any(), f"column {name}: padding")
+        block = n_full > 0 or r >= eng.SMALL_INPUT
+        check(counts["encode_blocks"] == 2 * block
+              and counts["encode_short"] == int(
+                  r >= eng.SMALL_INPUT and r % blk > 0),
+              f"column {name}: launches {counts}")
+        check(short == (int(r > 0), int(0 < r < eng.SMALL_INPUT)),
+              f"column {name}: short-superblock counters {short}")
+    log(f"columns: {len(cases)} kinds of end, each the host path's frame "
+        "and the plain version's, zeros past it, its launches and counters")
+
+    # a day's column
+    col = ts_column(dev, 8 * COLUMN_SAMPLES)
+    n = col.numel()
+    n_full, r = divmod(n, sb)
+    frame, length = compress_frame_device(col, 8, 1)
+    cap = frame.numel()
+    del frame
+    frame, length = frame_on_dirty(lambda: compress_frame_device(col, 8, 1),
+                                   cap, dev, ("compress_frame_device",
+                                              "column"))
+    whole = col[: n_full * sb].view(n_full, sb)
+    f2, l2 = compress_frame_device(whole, 8, 1)
+    h2 = len(frame_header_bytes(n_full * sb, sb, 8, 1))
+    hc = len(frame_header_bytes(n, sb, 8, 1))
+    body = int(l2) - h2
+    check(torch.equal(frame[hc : hc + body], f2[h2 : int(l2)]),
+          "column: whole superblocks differ from the 2-D frame's")
+    fs, ls = compress_frame_device(col[n_full * sb :].cpu(), 8, 1)
+    hs = len(frame_header_bytes(r, sb, 8, 1))
+    check(int(length) == hc + body + int(ls) - hs
+          and torch.equal(frame[hc + body : int(length)].cpu(),
+                          fs[hs : int(ls)]),
+          "column: the short superblock differs from the plain version's")
+    del f2, fs
+    eng.timing = []
+    for _ in range(20):
+        compress_frame_device(col, 8, 1)
+        compress_frame_device(whole, 8, 1)
+    torch.cuda.synchronize()
+    recs = trace.records()
+    eng.timing = None
+    kind = {s.id: "column" if s.nbytes == n else "whole" for s in recs
+            if s.name == "stn.compress_frame_device"}
+    k1 = {"column": [], "whole": []}
+    for s in recs:
+        if s.name == "stn.k1.launch":
+            k1[kind[s.call]].append(s.device_ms())
+    short = [s.device_ms() for s in recs if s.name == "stn.short_superblock"]
+    res["times"] = {
+        "k1_column_ms": float(np.median(k1["column"])),
+        "k1_whole_ms": float(np.median(k1["whole"])),
+        "encode_short_ms": float(np.median(short)),
+        "call_ms": cuda_ms(lambda: compress_frame_device(col, 8, 1), 20),
+        "bytes": n, "frame_bytes": int(length)}
+    log(f"column of {n} bytes ({r} past {n_full} superblocks): frame "
+        f"{int(length)} bytes, the 2-D frame's records and the plain "
+        f"short record; K1 {res['times']['k1_column_ms']:.4f} ms (whole "
+        f"superblocks alone {res['times']['k1_whole_ms']:.4f}), "
+        f"encode_short {res['times']['encode_short_ms']:.4f}, the call "
+        f"{res['times']['call_ms']:.4f} ms")
+    del frame, col, whole
+    torch.cuda.empty_cache()
+    return res
+
+
 def load_old(src):
     """The kernel modules of the package in another checkout (the parent
     commit's: the old design), loaded under the name old_stenos_tpu_torch
@@ -2502,6 +2631,8 @@ def main():
         err[name] = max(err[name], e)
     dres, times_dev, err_dev = phase_device(dev, raw, res[1]["frame"])
     log(f"  [{time.perf_counter() - t0:.1f} s]")
+    colres = phase_column(dev)
+    log(f"  [{time.perf_counter() - t0:.1f} s]")
     times.update(times_dev)
     err["encode_blocks"] = max(err["encode_blocks"],
                                err_dev.pop("encode_blocks"))
@@ -2592,7 +2723,8 @@ def main():
     record = {"card": card, "device": device, "headline_mb": HEADLINE_MB,
               "headline": {lvl: {k: v for k, v in r.items() if k != "frame"}
                            for lvl, r in res.items()},
-              "device_paths": dres, "context": cres, "sharding": sres,
+              "device_paths": dres, "columns": colres, "context": cres,
+              "sharding": sres,
               "entropy": eres, "grid": gres, "entropy_frames": efres,
               "zstd": zres,
               "timing": times,

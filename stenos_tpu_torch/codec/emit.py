@@ -205,3 +205,71 @@ def block_header_bytes_torch(codes, bpp):
     if bpp % 2:
         codes = torch.cat([codes, torch.zeros_like(codes[..., :1])], -1)
     return codes[..., 0::2] | (codes[..., 1::2] << 4)
+
+
+def partial_bound(rbytes: int, bpp: int) -> int:
+    """Longest partial segment (encode_partial, without its 0xFE marker) of
+    rbytes < 256 * bpp bytes: with a whole line, the code nibbles and at
+    most 8 row-header bytes a plane on top of the bytes (a row is never
+    longer than its 16 bytes with its minimum); else the bytes alone."""
+    if rbytes < 16 * bpp:
+        return rbytes
+    return rbytes + (bpp + 1) // 2 + 8 * bpp
+
+
+def encode_partial_torch(tail, bpp: int):
+    """torch twin of encode_np.encode_partial on a (rbytes,) uint8 tensor,
+    1 <= rbytes < 256 * bpp, on its device with no device-to-host copy (the
+    plain version of the encode_short kernel). Returns (segment
+    (partial_bound(rbytes, bpp),) uint8, length 0-d int32): the segment is
+    segment[:length], zeros follow."""
+    import torch
+
+    from ..ops.bitpack import pack16_any_torch
+    from ..ops.compact import compact
+    from .analyze import analyze_planes_torch
+
+    i32 = torch.int32
+    dev = tail.device
+    rbytes = tail.numel()
+    lines = rbytes // (16 * bpp)
+    if not lines:
+        return tail.clone(), torch.full((), rbytes, dtype=i32, device=dev)
+    # the block padded with the tail's last byte, as planes of 16 rows
+    el = torch.cat([tail, tail[-1:].expand(256 * bpp - rbytes)]).view(
+        256, bpp).to(i32)
+    x = el.t().reshape(bpp, 16, 16)
+    info = analyze_planes_torch(x, el[0], False)
+    same = info["all_same"]
+    h = info["headers"][:, :lines]
+    mins = info["minbytes"][:, :lines]
+    xs = x[:, :lines]
+    hdr = block_header_bytes_torch(torch.where(same, 0, 2), bpp)
+    hp = torch.cat([h, torch.zeros_like(h[:, : lines % 2])], -1)
+    heads = hp[:, 0::2] | (hp[:, 1::2] << 4)
+    # a row: raw (header 15), else (x or its deltas) - min at h & 7 bits
+    raw = h == 15
+    sub = torch.where((h < 8)[..., None], xs, info["deltas"][:, :lines])
+    packed = pack16_any_torch((sub - mins[..., None]) & 255,
+                              torch.where(raw, 0, h & 7))
+    rows = torch.where(raw[..., None], xs,
+                       torch.cat([packed, torch.zeros_like(packed[..., :4])],
+                                 -1))
+    len_r = torch.where(raw, 16, 2 * (h & 7))
+    # a plane: [first byte (ALL_SAME) | row headers | minimums | rows]
+    normal = ~same[:, None]
+    values = torch.cat([x[:, 0, :1], heads, mins, rows.flatten(1)], -1)
+    valid = torch.cat([
+        same[:, None], normal.expand(heads.shape), normal & ~raw,
+        (normal[..., None] & (torch.arange(16, device=dev) < len_r[..., None])
+         ).flatten(1)], -1)
+    rest = tail[lines * 16 * bpp:].to(i32)
+    values = torch.cat([hdr, values.flatten(), rest])
+    valid = torch.cat([torch.ones_like(hdr, dtype=torch.bool),
+                       valid.flatten(),
+                       torch.ones_like(rest, dtype=torch.bool)])
+    width = partial_bound(rbytes, bpp)
+    values = torch.cat([values, values.new_zeros(max(0, width - len(values)))])
+    valid = torch.cat([valid, valid.new_zeros(len(values) - len(valid))])
+    out, n = compact(values[None], valid[None])
+    return out[0, :width].to(torch.uint8), n[0]

@@ -53,6 +53,11 @@
 //   left is to fold it into K1's frame mode: each CTA finds its base by a
 //   decoupled look-back over the totals of the CTAs before it and copies
 //   its record, still in L2, at its end.
+// A column (a 1-D array of any length) ends in a short superblock: K1's
+//   last CTA encodes its whole blocks (nb_last of them) into the last row,
+//   encode_short (one CTA) appends the 0xFE marker and the partial segment
+//   of the bytes past them, and place_records places that record as any
+//   other: three launches, two when the column ends in whole blocks.
 //
 // Bound: integer instructions and their latency, not bytes. The row analysis
 // alone is ~11 32-bit integer instructions an input byte (plane decisions and
@@ -225,33 +230,8 @@ __device__ __forceinline__ int delta(const Plane& p, int c) {
     return (p.x[c] - (c ? p.x[c - 1] : p.prev)) & 255;
 }
 
-// Row r's share of the plane's bytes, written at o (the plane's start in the
-// shared output window). hn is row r+1's header (for the even rows' nibble).
-__device__ __forceinline__ void emit(const Plane& p, uint8_t* o, int r,
-                                     int hn) {
-    if (p.code == 0) {
-        if (r == 0) o[0] = (uint8_t)p.x[0];
-        return;
-    }
-    if (p.code == 1) {
-#pragma unroll
-        for (int c = 0; c < 16; ++c) o[r * 16 + c] = (uint8_t)p.x[c];
-        return;
-    }
-    // NORMAL / NORMAL_RLE: [header nibbles (8)] [mins section] [16 rows]
-    const unsigned below = (1u << r) - 1;
-    if (!(r & 1)) o[r >> 1] = (uint8_t)(p.h | (hn << 4));
-    if (p.code == 3) {
-        if (r == 0) {
-            o[8] = (uint8_t)(p.mmask & 255);
-            o[9] = (uint8_t)(p.mmask >> 8);
-        }
-        if (!((p.mmask >> r) & 1))
-            o[10 + __popc(~p.mmask & below)] = (uint8_t)p.minb;
-    } else if ((p.elig >> r) & 1) {
-        o[8 + __popc(p.elig & below)] = (uint8_t)p.minb;
-    }
-    uint8_t* row = o + 8 + p.lenB + p.row_off;
+// the row's own bytes, at row: raw, RLE or bit-packed by its header
+__device__ __forceinline__ void emit_row(const Plane& p, uint8_t* row) {
     const int h = p.h;
     if (h == 15) {
 #pragma unroll
@@ -283,6 +263,35 @@ __device__ __forceinline__ void emit(const Plane& p, uint8_t* o, int r,
             }
         }
     }
+}
+
+// Row r's share of the plane's bytes, written at o (the plane's start in the
+// shared output window). hn is row r+1's header (for the even rows' nibble).
+__device__ __forceinline__ void emit(const Plane& p, uint8_t* o, int r,
+                                     int hn) {
+    if (p.code == 0) {
+        if (r == 0) o[0] = (uint8_t)p.x[0];
+        return;
+    }
+    if (p.code == 1) {
+#pragma unroll
+        for (int c = 0; c < 16; ++c) o[r * 16 + c] = (uint8_t)p.x[c];
+        return;
+    }
+    // NORMAL / NORMAL_RLE: [header nibbles (8)] [mins section] [16 rows]
+    const unsigned below = (1u << r) - 1;
+    if (!(r & 1)) o[r >> 1] = (uint8_t)(p.h | (hn << 4));
+    if (p.code == 3) {
+        if (r == 0) {
+            o[8] = (uint8_t)(p.mmask & 255);
+            o[9] = (uint8_t)(p.mmask >> 8);
+        }
+        if (!((p.mmask >> r) & 1))
+            o[10 + __popc(~p.mmask & below)] = (uint8_t)p.minb;
+    } else if ((p.elig >> r) & 1) {
+        o[8 + __popc(p.elig & below)] = (uint8_t)p.minb;
+    }
+    emit_row(p, o + 8 + p.lenB + p.row_off);
 }
 
 // win[ph + i] -> dst[i] for i < n, where dst = 16-byte boundary + ph: the
@@ -357,14 +366,20 @@ struct Geometry {
 };
 
 // Row s of out (row_w bytes): [record header (rec = 4 bytes) | stream |
-// zeros up to row_w if zero_tail]. totals[s] is the stream length. Frame
+// zeros up to row_w if zero_tail]. totals[s] is the stream length. Every
+// superblock has nb blocks but, in a column (kColumn), the last, which has
+// nb_last (the short superblock's whole blocks). kColumn is a template
+// argument so that whole superblocks run the code they ran before columns
+// (64 registers, no spills), as the one extra live count spills. Frame
 // mode (frame not null): CTA s first zeroes slot s of the frame's capacity
 // cap behind its hlen-byte header, [hlen + s*w, hlen + (s+1)*w) with w =
 // (cap - hlen) / n_sb, for place_records to write the records over.
+template <bool kColumn>
 __global__ void __launch_bounds__(kThreads, 4)
-encode_superblocks(const uint8_t* __restrict__ data, int nb, int bpp,
-                   int level, uint8_t* __restrict__ out, long long row_w,
-                   int rec, int zero_tail, int* __restrict__ totals,
+encode_superblocks(const uint8_t* __restrict__ data, int nb, int nb_last,
+                   int bpp, int level, uint8_t* __restrict__ out,
+                   long long row_w, int rec, int zero_tail,
+                   int* __restrict__ totals,
                    int* __restrict__ bsizes, int* __restrict__ fsizes,
                    int* __restrict__ plane_off, uint8_t* __restrict__ frame,
                    long long cap, int hlen, Geometry geo) {
@@ -381,6 +396,8 @@ encode_superblocks(const uint8_t* __restrict__ data, int nb, int bpp,
     const int hdr_w = (bpp + 1) / 2;
     const long long bbytes = 256LL * bpp;
     const uint8_t* src = data + sb * nb * bbytes;
+    // blocks of this superblock: a column's last (short) one has nb_last
+    const int nbk = kColumn && sb + 1 == gridDim.x ? nb_last : nb;
     uint8_t* row = out + sb * row_w;
     uint8_t* win = smem + geo.win_off;
     uint8_t* codes = smem + geo.codes_off;
@@ -412,12 +429,12 @@ encode_superblocks(const uint8_t* __restrict__ data, int nb, int bpp,
     if (geo.tile_blocks) {
         const int kb = geo.tile_blocks;
         const int gstride = 16 * bpp + geo.pad;
-        const int ntiles = (nb + kb - 1) / kb;
+        const int ntiles = (nbk + kb - 1) / kb;
         const Divider by_bpp(bpp);
         auto load = [&](int tile) {
             uint8_t* st = smem + (tile & 1) * geo.stage_bytes;
             const uint8_t* g = src + tile * kb * bbytes;
-            const int nw = min(kb, nb - tile * kb) * 16 * bpp;
+            const int nw = min(kb, nbk - tile * kb) * 16 * bpp;
             for (int i = t; i < nw; i += kThreads) {
                 const int grp = by_bpp(i);
                 cp_async16(st + grp * gstride + (i - grp * bpp) * 16,
@@ -436,7 +453,7 @@ encode_superblocks(const uint8_t* __restrict__ data, int nb, int bpp,
             __syncthreads();
             const uint8_t* st = smem + (tile & 1) * geo.stage_bytes;
             const int b0 = tile * kb;
-            const int kbt = min(kb, nb - b0);
+            const int kbt = min(kb, nbk - b0);
             const int np = kbt * bpp;
             uint8_t* dst = row + rec + run;
             const int ph = (int)((uintptr_t)dst & 15);
@@ -489,7 +506,7 @@ encode_superblocks(const uint8_t* __restrict__ data, int nb, int bpp,
     } else {
         // blocks wider than a stage: 16 planes at a time, a thread an element
         const int gstride = 16 * 16 + geo.pad;
-        for (int b = 0; b < nb; ++b) {
+        for (int b = 0; b < nbk; ++b) {
             const uint8_t* blk = src + b * bbytes;
             int carry = 0;
             for (int j0 = 0; j0 < bpp; j0 += 16) {
@@ -595,6 +612,90 @@ place_records(const uint8_t* __restrict__ rows, long long row_w,
     }
 }
 
+// A column's short superblock, after encode_superblocks wrote the record of
+// its whole blocks into row (totals[s] = *total): one CTA appends the
+// 0xFE marker and the partial segment of the rbytes < 256 * bpp bytes past
+// those blocks (tail), as codec/encode_np.py's encode_partial: the block
+// padded with the tail's last byte; with at least one whole line of 16
+// elements, the planes' code nibbles (ALL_SAME 0, else NORMAL 2; no RLE,
+// no ALL_RAW), then each plane's first byte (ALL_SAME) or the headers of its
+// `lines` whole rows, their minimums and the rows themselves; then the bytes
+// past the last whole line, raw. Planes go 16 at a time, a half-warp a
+// plane and a lane a row, through analyse at block level 0. Rewrites the
+// record's csize and *total.
+__global__ void __launch_bounds__(kThreads)
+encode_short(const uint8_t* __restrict__ tail, int rbytes, int bpp,
+             uint8_t* __restrict__ row, int* __restrict__ total) {
+    __shared__ __align__(16) uint8_t st[256 * 16];  // 16 planes' bytes
+    __shared__ int s_ps[16];
+    __shared__ uint8_t s_code[16];
+    const int t = threadIdx.x;
+    const int q = t >> 4;  // plane slot of the group
+    const int r = t & 15;  // row of the plane
+    const int seg = t & 16;
+    const int lines = rbytes / (16 * bpp);
+    const int nib = (1 + lines) >> 1;  // row-header bytes of a NORMAL plane
+    const unsigned whole = (1u << lines) - 1;
+    const int base = *total;
+    const uint8_t pad = tail[rbytes - 1];
+    uint8_t* out = row + 4 + base + 1;  // behind the stream and the marker
+    __syncthreads();  // every thread has read *total before it is rewritten
+    int carry = lines ? (bpp + 1) / 2 : 0;
+    for (int j0 = 0; lines && j0 < bpp; j0 += 16) {
+        const int n = min(16, bpp - j0);
+        for (int i = 0; i < n; ++i) {
+            const int k = t * bpp + j0 + i;
+            st[t * 16 + i] = k < rbytes ? tail[k] : pad;
+        }
+        __syncthreads();
+        const bool active = q < n;
+        Plane p;
+        analyse(p, st + r * 256 + (active ? q : n - 1), 16, 0, r, seg);
+        const int hn = __shfl_down_sync(kFull, p.h, 1, 16);
+        const int rows_len =
+            __shfl_sync(kFull, p.row_off + p.len, lines - 1, 16);
+        const unsigned elig = p.elig & whole;
+        const bool same = p.code == 0;
+        if (r == 0) {
+            s_ps[q] = !active ? 0 : same ? 1
+                                         : nib + __popc(elig) + rows_len;
+            s_code[q] = same ? 0 : 2;
+        }
+        __syncthreads();
+        int pre = 0, group = 0;
+        for (int i = 0; i < 16; ++i) {
+            pre += i < q ? s_ps[i] : 0;
+            group += s_ps[i];
+        }
+        uint8_t* o = out + carry + pre;
+        if (active && same && r == 0) {
+            o[0] = (uint8_t)p.x[0];
+        } else if (active && !same && r < lines) {
+            if (!(r & 1))
+                o[r >> 1] = (uint8_t)(p.h | ((r + 1 < lines ? hn : 0) << 4));
+            if ((elig >> r) & 1)
+                o[nib + __popc(elig & ((1u << r) - 1))] = (uint8_t)p.minb;
+            emit_row(p, o + nib + __popc(elig) + p.row_off);
+        }
+        if (t < (n + 1) / 2)
+            out[j0 / 2 + t] = (uint8_t)(
+                s_code[2 * t] | (2 * t + 1 < n ? s_code[2 * t + 1] << 4 : 0));
+        carry += group;
+        __syncthreads();  // st, s_ps and s_code are rewritten next group
+    }
+    const int done = lines * 16 * bpp;
+    for (int i = t; i < rbytes - done; i += kThreads)
+        out[carry + i] = tail[done + i];
+    if (t == 0) {
+        const int run = base + 1 + carry + rbytes - done;
+        out[-1] = 0xFE;
+        row[1] = (uint8_t)run;
+        row[2] = (uint8_t)(run >> 8);
+        row[3] = (uint8_t)(run >> 16);
+        *total = run;
+    }
+}
+
 }  // namespace
 
 #ifdef __CUDACC__
@@ -605,21 +706,21 @@ place_records(const uint8_t* __restrict__ rows, long long row_w,
 // the header) except in frame mode; the geometry is the host's launch plan
 // (ops/encode_kernel.py launch_plan), smem its shared-memory bytes.
 extern "C" int stenos_encode_superblocks(
-        const void* data, long long n_sb, int nb, int bpp, int level,
-        void* out, long long row_w, int rec, int zero_tail, void* totals,
-        void* bsizes, void* fsizes, void* plane_off, void* frame,
-        long long cap, int hlen, int tile_blocks, int pad, int stage_bytes,
-        int win_off, int codes_off, int smem, void* stream) {
+        const void* data, long long n_sb, int nb, int nb_last, int bpp,
+        int level, void* out, long long row_w, int rec, int zero_tail,
+        void* totals, void* bsizes, void* fsizes, void* plane_off,
+        void* frame, long long cap, int hlen, int tile_blocks, int pad,
+        int stage_bytes, int win_off, int codes_off, int smem, void* stream) {
     const Geometry geo{tile_blocks, pad, stage_bytes, win_off, codes_off};
+    const auto kernel = nb_last == nb ? encode_superblocks<false>
+                                      : encode_superblocks<true>;
     cudaError_t e = cudaFuncSetAttribute(
-        encode_superblocks, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
-    encode_superblocks<<<(unsigned)n_sb, kThreads, smem,
-                         (cudaStream_t)stream>>>(
-        (const uint8_t*)data, nb, bpp, level, (uint8_t*)out, row_w, rec,
-        zero_tail, (int*)totals, (int*)bsizes, (int*)fsizes, (int*)plane_off,
-        (uint8_t*)frame, cap, hlen, geo);
+    kernel<<<(unsigned)n_sb, kThreads, smem, (cudaStream_t)stream>>>(
+        (const uint8_t*)data, nb, nb_last, bpp, level, (uint8_t*)out, row_w,
+        rec, zero_tail, (int*)totals, (int*)bsizes, (int*)fsizes,
+        (int*)plane_off, (uint8_t*)frame, cap, hlen, geo);
     return (int)cudaGetLastError();
 }
 
@@ -633,6 +734,15 @@ extern "C" int stenos_place_records(const void* rows, long long row_w,
     place_records<<<(unsigned)n_sb, kThreads, 0, (cudaStream_t)stream>>>(
         (const uint8_t*)rows, row_w, (const int*)totals, (int)n_sb,
         (uint8_t*)frame, cap, h0, h1, hlen, zero_tail, (long long*)length);
+    return (int)cudaGetLastError();
+}
+
+// tail: the rbytes (1 <= rbytes < 256 * bpp) bytes past the short
+// superblock's whole blocks; row and total: its record and stream length
+extern "C" int stenos_encode_short(const void* tail, int rbytes, int bpp,
+                                   void* row, void* total, void* stream) {
+    encode_short<<<1, kThreads, 0, (cudaStream_t)stream>>>(
+        (const uint8_t*)tail, rbytes, bpp, (uint8_t*)row, (int*)total);
     return (int)cudaGetLastError();
 }
 #endif

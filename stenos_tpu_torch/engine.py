@@ -28,7 +28,9 @@ and two device-resident paths with no host byte traffic:
                          -> decode_rows_derive on the records themselves.
   compress_frame_device  encode_superblocks_frame: the same kernel writes
                          the records, a second launch moves them behind the
-                         frame header, in one buffer.
+                         frame header, in one buffer; a 1-D column of any
+                         length through encode_column_frame (a short last
+                         superblock, its partial segment by encode_short).
 
 Counterpart of stenos_tpu/engine_jax.py (JaxEngine, decompress_frame_batched,
 roundtrip_device, compress_frame_device_jit).
@@ -50,7 +52,8 @@ from .codec.lz_np import fresh_table, lz_compress_block
 from .constants import (BLOCK_LZ, BLOCK_PARTIAL, ERROR_DST_OVERFLOW,
                         ERROR_INVALID_INPUT, MAX_BLOCK_BYTES)
 from .ops.decode_kernel import decode_rows, decode_rows_derive
-from .ops.encode_kernel import (encode_superblocks, encode_superblocks_frame,
+from .ops.encode_kernel import (encode_column_frame, encode_superblocks,
+                                encode_superblocks_frame,
                                 encode_superblocks_index, record_bound)
 from .utils import trace
 
@@ -490,21 +493,97 @@ def frame_header_bytes(nbytes: int, sb: int, bpp: int, level: int) -> bytes:
             + sb.to_bytes(4, "little"))
 
 
-def compress_frame_device(data, bpp: int, level: int):
-    """Device-resident frame compression (every superblock method BLOCK) of a
-    (n_sb, sb) uint8 tensor, on its device: the encode at block level 2 (as
-    the JAX package's device path) writes each record straight to its place
-    behind the frame header. No LZ patch-up and no fallback to COPY: the
-    frame equals stenos_tpu's compress_frame_device_jit, and decodes with
-    decompress.
+# device frame compresses of a column whose frame ends in a short
+# superblock, and of those the ones whose short superblock is under
+# SMALL_INPUT bytes (chip_smoke.py and the tests read these)
+short_superblocks = 0
+short_superblocks_small = 0
+SMALL_INPUT = 128  # a shorter superblock is ZSTD or COPY (compress_superblock)
 
-    Returns (frame (capacity,) uint8, length): the frame is frame[:length];
-    length is a 0-d int64 tensor on the device (no device-to-host copy)."""
-    n_sb, sb = data.shape
-    with trace.span("stn.compress_frame_device", nbytes=n_sb * sb,
-                    superblocks=n_sb):
-        return encode_superblocks_frame(
-            data, bpp, 2, frame_header_bytes(n_sb * sb, sb, bpp, level))
+
+def compress_frame_device(data, bpp: int, level: int):
+    """Device-resident frame compression of a uint8 tensor, on its device:
+    every superblock a METHOD_BLOCK record encoded at block level 2 (as the
+    JAX package's device path) and written straight to its place behind
+    the frame header. No LZ patch-up and no fallback to COPY: the frame
+    equals stenos_tpu's compress_frame_device_jit and, where the host
+    path's frame has no LZ block and no COPY record, the host path's frame
+    at level 1; it decodes with decompress.
+
+    data is (n_sb, sb), whole superblocks of any size that is a whole
+    number of blocks (two launches), or a contiguous 1-D column of any
+    length, whose superblocks are the level's. A column that is no whole
+    number of them ends in a short superblock of r bytes: its whole blocks
+    ride as one more row of K1, the partial segment of the bytes past them
+    is encoded on the card (encode_short), and place_records places its
+    record with the others: three launches (ops/encode_kernel.py
+    encode_column_frame). Under SMALL_INPUT bytes it takes the library's
+    small-input route, its one host step: the r bytes are copied to the
+    host (waiting for the card) and compressed there by libzstd (a ZSTD
+    record, or COPY where that does not shrink them), and the record is
+    written behind the whole superblocks' frame on the card.
+
+    Returns (frame (capacity,) uint8, length): the frame is frame[:length],
+    zeros follow; length is a 0-d int64 tensor on the device (no
+    device-to-host copy)."""
+    global short_superblocks, short_superblocks_small
+    if data.dim() == 2:
+        n_sb, sb = data.shape
+        with trace.span("stn.compress_frame_device", nbytes=n_sb * sb,
+                        superblocks=n_sb):
+            return encode_superblocks_frame(
+                data, bpp, 2, frame_header_bytes(n_sb * sb, sb, bpp, level))
+    from .frame import _superblock_params
+
+    nbytes = data.numel()
+    if data.dim() != 1 or data.dtype != torch.uint8 or not nbytes:
+        raise ValueError("compress_frame_device: need a (n_sb, sb) or a "
+                         "non-empty 1-D uint8 tensor")
+    sb = _superblock_params(bpp, nbytes, level)[0]
+    header = frame_header_bytes(nbytes, sb, bpp, level)
+    n_full, r = divmod(nbytes, sb)
+    with trace.span("stn.compress_frame_device", nbytes=nbytes,
+                    superblocks=n_full + (r > 0)):
+        if not r:
+            return encode_superblocks_frame(data.view(n_full, sb), bpp, 2,
+                                            header)
+        short_superblocks += 1
+        if r >= SMALL_INPUT:
+            return encode_column_frame(data, bpp, 2, header, sb)
+        short_superblocks_small += 1
+        return _small_tail_frame(data, bpp, level, header, sb)
+
+
+def _small_tail_frame(data, bpp: int, level: int, header: bytes, sb: int):
+    """compress_frame_device's small-input route: the whole superblocks'
+    frame on the card with 4 + r spare bytes of capacity, then, under the
+    span stn.short_superblock, the last r < SMALL_INPUT bytes through the
+    host path's compress_superblock (libzstd's ZSTD record, else COPY),
+    written at the frame's length on the card."""
+    from .frame import compress_superblock
+
+    dev = data.device
+    n_full, r = divmod(data.numel(), sb)
+    if n_full:
+        frame, length = encode_superblocks_frame(
+            data[: n_full * sb].view(n_full, sb), bpp, 2, header, r + 4)
+    else:
+        frame = torch.zeros(len(header) + r + 4, dtype=torch.uint8,
+                            device=dev)
+        length = torch.full((), len(header), dtype=torch.int64, device=dev)
+    with trace.span("stn.short_superblock", dev, nbytes=r, superblocks=1):
+        rec = compress_superblock(data[n_full * sb :].cpu().numpy(), bpp,
+                                  level, r + 4)
+        if not n_full:
+            frame[: len(header)] = torch.tensor(list(header),
+                                                dtype=torch.uint8)
+        # r + 4 bytes from the length on: the record, then zeros
+        window = torch.zeros(r + 4, dtype=torch.uint8)
+        window[: len(rec)] = torch.frombuffer(bytearray(rec),
+                                              dtype=torch.uint8)
+        frame.index_copy_(0, length + torch.arange(r + 4, device=dev),
+                          window.to(dev))
+    return frame, length + len(rec)
 
 
 trace.switch(sys.modules[__name__])

@@ -34,6 +34,12 @@ same launch, then a second launch, place_records, that moves each record
 to its place. place_records is a wrapper of its own too, which zeroes the
 tail itself. Its plain version is encode_superblocks_frame_plain.
 
+encode_column_frame(data, bpp, block_level, header, sb) is the frame of a
+1-D column whose length is no whole number of superblocks: K1's frame mode
+with one more row, the short superblock's whole blocks; encode_short (one
+CTA) appends its partial segment to that row; place_records places every
+record. Its plain version is encode_column_frame_plain.
+
 The streams and index modes are one launch each. launch_plan gives the
 kernel's shared-memory geometry for a bpp.
 """
@@ -43,7 +49,9 @@ import ctypes
 import torch
 
 from ..codec.analyze import analyze_planes_torch, plane_kinds_torch
-from ..codec.emit import block_header_bytes_torch, plane_sections_torch
+from ..codec.emit import (block_header_bytes_torch, encode_partial_torch,
+                          partial_bound, plane_sections_torch)
+from ..constants import BLOCK_PARTIAL
 from ..utils import trace
 from . import _cuda
 from .compact import compact
@@ -51,19 +59,22 @@ from .compact import compact
 # launches of encode_superblocks (and, in frame mode, place_records) below
 # (chip_smoke.py reads these): K1's modes (streams, frame), and the index
 # mode (K1b), counted apart; launches_frame_tail counts the frame-mode K1
-# launches that zeroed the frame's capacity (also counted in launches)
+# launches that zeroed the frame's capacity (also counted in launches);
+# launches_short counts encode_short's
 launches = 0
 launches_index = 0
 launches_frame_tail = 0
+launches_short = 0
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _I = ctypes.c_int
 _ULL = ctypes.c_ulonglong
 _SIGNATURES = {
-    "stenos_encode_superblocks": [_P, _LL, _I, _I, _I, _P, _LL, _I, _I, _P,
-                                  _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I,
-                                  _I, _I, _P],
+    "stenos_encode_superblocks": [_P, _LL, _I, _I, _I, _I, _P, _LL, _I, _I,
+                                  _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I,
+                                  _I, _I, _I, _P],
+    "stenos_encode_short": [_P, _I, _I, _P, _P, _P],
     "stenos_place_records": [_P, _LL, _P, _LL, _P, _LL, _ULL, _ULL, _I, _I,
                              _P, _P],
 }
@@ -239,17 +250,68 @@ def place_records_plain(rows, totals, header: bytes, nb: int, bpp: int):
 
 
 def encode_superblocks_frame_plain(data, bpp: int, block_level: int,
-                                   header: bytes):
+                                   header: bytes, spare: int = 0):
     """Plain torch version of the frame layout: the index mode's records
     placed behind the header by place_records_plain (each step under the
-    span of the launch it stands for)."""
+    span of the launch it stands for), spare zeros more."""
     with trace.span("stn.k1.launch", nbytes=data.numel(),
                     superblocks=data.shape[0]):
         rows, totals = encode_superblocks_index_plain(data, bpp,
                                                       block_level)[:2]
     with trace.span("stn.place_records.launch", superblocks=data.shape[0]):
-        return place_records_plain(rows, totals - 4, header,
-                                   data.shape[1] // (256 * bpp), bpp)
+        frame, length = place_records_plain(
+            rows, totals - 4, header, data.shape[1] // (256 * bpp), bpp)
+    return torch.cat([frame, frame.new_zeros(spare)]), length
+
+
+def column_slot(nb: int, r: int, bpp: int) -> int:
+    """A column frame's bytes of capacity a superblock: the record bound
+    of a whole superblock of nb blocks (nb 0 for a column shorter than
+    one) or, if longer, of the short superblock of r bytes (its whole
+    blocks, the 0xFE marker and the partial segment)."""
+    nbs, rbytes = divmod(r, 256 * bpp)
+    short = record_bound(nbs, bpp) + (1 + partial_bound(rbytes, bpp)
+                                      if rbytes else 0)
+    return max(record_bound(nb, bpp), short)
+
+
+def encode_column_frame_plain(data, bpp: int, block_level: int,
+                              header: bytes, sb: int):
+    """Plain torch version of encode_column_frame (each step under the span
+    of the launch it stands for)."""
+    nbytes = data.numel()
+    n_full, r = divmod(nbytes, sb)
+    blk = 256 * bpp
+    nbs, rbytes = divmod(r, blk)
+    dev = data.device
+    parts = [torch.tensor(list(header), dtype=torch.uint8, device=dev)]
+    stream = torch.zeros(0, dtype=torch.uint8, device=dev)
+    with trace.span("stn.k1.launch", nbytes=n_full * sb + nbs * blk,
+                    superblocks=n_full + 1):
+        if n_full:
+            rows, totals = encode_superblocks_index_plain(
+                data[: n_full * sb].view(n_full, sb), bpp, block_level)[:2]
+            parts.append(rows[torch.arange(rows.shape[1], device=dev)
+                              < totals[:, None]])
+        if nbs:
+            streams, total = encode_superblocks_plain(
+                data[n_full * sb : n_full * sb + nbs * blk].view(1, -1), bpp,
+                block_level)[:2]
+            stream = streams[0, : int(total[0])]
+    with trace.span("stn.short_superblock", nbytes=rbytes, superblocks=1):
+        if rbytes:
+            seg, n = encode_partial_torch(data[nbytes - rbytes :], bpp)
+            stream = torch.cat([stream, stream.new_full((1,), BLOCK_PARTIAL),
+                                seg[: int(n)]])
+    n = stream.numel()
+    parts += [torch.tensor([1, n & 255, (n >> 8) & 255, n >> 16],
+                           dtype=torch.uint8, device=dev), stream]
+    with trace.span("stn.place_records.launch", superblocks=n_full + 1):
+        body = torch.cat(parts)
+        slot = column_slot(sb // blk if n_full else 0, r, bpp)
+        frame = body.new_zeros(len(header) + (n_full + 1) * slot)
+        frame[: body.numel()] = body
+        return frame, torch.tensor(body.numel(), dtype=torch.int64)
 
 
 def _check_args(name, data, bpp, block_level):
@@ -273,18 +335,24 @@ def _count(index: bool):
 
 
 def _encode_rows(data, bpp: int, block_level: int, row_w: int, rec: int,
-                 zero_tail: bool, index: bool, frame=None, hlen: int = 0):
+                 zero_tail: bool, index: bool, frame=None, hlen: int = 0,
+                 column=None):
     """One launch of encode_superblocks: each superblock's stream (rec 0) or
     record (rec 4: [1, csize u24, stream]) at the start of its row of row_w
     bytes, zeros after it when zero_tail. Frame mode (a frame tensor, behind
     an hlen-byte header): the same launch zeroes frame[hlen:], one slot of
-    (len(frame) - hlen) / n_sb bytes a superblock. Returns (rows, stream
+    (len(frame) - hlen) / n_sb bytes a superblock. A column (a 1-D data,
+    column = (n_sb, nb, nb_last)): n_sb - 1 superblocks of nb blocks, then
+    the short superblock's nb_last whole blocks. Returns (rows, stream
     totals, bsizes, fsizes, plane_off or None)."""
     global launches_frame_tail
     lib = _cuda.load("encode_blocks", _SIGNATURES)
     dev = data.device
-    n_sb, sbytes = data.shape
-    nb = sbytes // (256 * bpp)
+    if column is None:
+        n_sb, sbytes = data.shape
+        nb = nb_last = sbytes // (256 * bpp)
+    else:
+        n_sb, nb, nb_last = column
     if data.data_ptr() % 16:  # the kernel copies 16-byte words
         data = data.clone()
     plan = launch_plan(bpp, nb)
@@ -297,12 +365,14 @@ def _encode_rows(data, bpp: int, block_level: int, row_w: int, rec: int,
     fsizes = torch.empty((n_sb, nb), dtype=torch.int32, device=dev)
     plane_off = (torch.empty((n_sb, bpp * nb), dtype=torch.int32, device=dev)
                  if index else None)
-    with trace.span("stn.k1.launch", dev, nbytes=n_sb * sbytes,
+    with trace.span("stn.k1.launch", dev,
+                    nbytes=((n_sb - 1) * nb + nb_last) * 256 * bpp,
                     superblocks=n_sb):
         _cuda.check(lib.stenos_encode_superblocks(
-            data.data_ptr(), n_sb, nb, bpp, block_level, rows.data_ptr(),
-            row_w, rec, int(zero_tail), totals.data_ptr(), bsizes.data_ptr(),
-            fsizes.data_ptr(), plane_off.data_ptr() if index else None,
+            data.data_ptr(), n_sb, nb, nb_last, bpp, block_level,
+            rows.data_ptr(), row_w, rec, int(zero_tail), totals.data_ptr(),
+            bsizes.data_ptr(), fsizes.data_ptr(),
+            plane_off.data_ptr() if index else None,
             None if frame is None else frame.data_ptr(),
             0 if frame is None else frame.numel(), hlen,
             plan["tile_blocks"], plan["pad"], plan["stage_bytes"],
@@ -314,12 +384,13 @@ def _encode_rows(data, bpp: int, block_level: int, row_w: int, rec: int,
     return rows, totals, bsizes, fsizes, plane_off
 
 
-def _frame_buffer(header: bytes, n_sb: int, nb: int, bpp: int, dev):
+def _frame_buffer(header: bytes, n_sb: int, nb: int, bpp: int, dev,
+                  spare: int = 0):
     """The frame's (capacity,) uint8 buffer, unwritten: len(header) + n_sb *
-    record_bound(nb, bpp) bytes."""
+    record_bound(nb, bpp) bytes, and spare bytes more."""
     if len(header) > 16:
         raise ValueError("encode_superblocks_frame: header longer than 16")
-    return torch.empty(len(header) + n_sb * record_bound(nb, bpp),
+    return torch.empty(len(header) + n_sb * record_bound(nb, bpp) + spare,
                        dtype=torch.uint8, device=dev)
 
 
@@ -431,19 +502,79 @@ def place_records(rows, totals, header: bytes, nb: int, bpp: int):
 
 
 def encode_superblocks_frame(data, bpp: int, block_level: int,
-                             header: bytes):
+                             header: bytes, spare: int = 0):
     """The frame-layout wrapper: every superblock's record [1, csize u24,
     stream] back to back behind `header`, in one buffer, with no
     device-to-host copy. Returns (frame (capacity,) uint8, length 0-d int64
     tensor): the frame is frame[:length], zeros follow; capacity is
-    len(header) + n_sb * record_bound(nb, bpp). Counted as K1 launches: K1
-    zeroes the capacity behind the header, place_records writes the header,
-    the records and the length over it."""
+    len(header) + n_sb * record_bound(nb, bpp), and spare bytes more
+    (zeroed apart, for a record the caller adds). Counted as K1 launches:
+    K1 zeroes the capacity behind the header, place_records writes the
+    header, the records and the length over it."""
     if data.device.type == "cpu":
-        return encode_superblocks_frame_plain(data, bpp, block_level, header)
+        return encode_superblocks_frame_plain(data, bpp, block_level, header,
+                                              spare)
     _check_args("encode_superblocks_frame", data, bpp, block_level)
     nb = data.shape[1] // (256 * bpp)
-    frame = _frame_buffer(header, data.shape[0], nb, bpp, data.device)
+    frame = _frame_buffer(header, data.shape[0], nb, bpp, data.device, spare)
+    body = frame
+    if spare:
+        body = frame[:-spare]
+        frame[-spare:].zero_()
     rows, totals = _encode_rows(data, bpp, block_level, record_bound(nb, bpp),
-                                4, False, False, frame, len(header))[:2]
+                                4, False, False, body, len(header))[:2]
+    return frame, _place_records(rows, totals, header, nb, bpp, body)[1]
+
+
+def encode_column_frame(data, bpp: int, block_level: int, header: bytes,
+                        sb: int):
+    """The frame of a 1-D uint8 column whose length is no whole number of
+    superblocks of sb bytes, every superblock a METHOD_BLOCK record behind
+    header: the whole superblocks as encode_superblocks_frame writes them,
+    then the short superblock's record [1, csize u24, its whole blocks'
+    stream, 0xFE, the partial segment of the bytes past them]
+    (codec/encode_np.py's block_codec_encode without LZ). Returns (frame
+    (capacity,) uint8, length 0-d int64): the frame is frame[:length], zeros
+    follow; capacity is len(header) + (n_sb + 1) * column_slot(nb, r, bpp)
+    for n_sb whole superblocks of nb blocks (nb 0 when n_sb is 0) and r
+    bytes past them.
+
+    On the card, with no device-to-host copy: K1 in frame mode, the short
+    superblock's whole blocks a last row of their own; encode_short (one
+    CTA, under the span stn.short_superblock) appends the partial segment
+    to that row; place_records places every record. A CPU tensor takes
+    encode_column_frame_plain."""
+    global launches_short
+    if data.device.type == "cpu":
+        return encode_column_frame_plain(data, bpp, block_level, header, sb)
+    nbytes = data.numel()
+    if (data.device.type != "cuda" or data.dtype != torch.uint8
+            or data.dim() != 1 or not data.is_contiguous() or bpp < 1
+            or sb % (256 * bpp) or not nbytes % sb
+            or not 0 <= block_level <= 2 or len(header) > 16):
+        raise ValueError(f"encode_column_frame: need a contiguous 1-D uint8 "
+                         f"CUDA column of no whole number of {sb}-byte "
+                         f"superblocks for bpp {bpp}, block level "
+                         f"{block_level}")
+    if data.data_ptr() % 16:  # K1 copies 16-byte words
+        data = data.clone()
+    dev = data.device
+    n_full, r = divmod(nbytes, sb)
+    nbs, rbytes = divmod(r, 256 * bpp)
+    nb = sb // (256 * bpp)
+    slot = column_slot(nb if n_full else 0, r, bpp)
+    frame = torch.empty(len(header) + (n_full + 1) * slot, dtype=torch.uint8,
+                        device=dev)
+    rows, totals = _encode_rows(data, bpp, block_level, slot, 4, False,
+                                False, frame, len(header),
+                                column=(n_full + 1, nb, nbs))[:2]
+    with trace.span("stn.short_superblock", dev, nbytes=rbytes,
+                    superblocks=1):
+        if rbytes:
+            lib = _cuda.load("encode_blocks", _SIGNATURES)
+            _cuda.check(lib.stenos_encode_short(
+                data.data_ptr() + nbytes - rbytes, rbytes, bpp,
+                rows[-1].data_ptr(), totals[-1:].data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream), "encode_short")
+            launches_short += 1
     return _place_records(rows, totals, header, nb, bpp, frame)
