@@ -33,7 +33,12 @@ DeviceCompressedArray (build, reads, serialize, deserialize) and
 compress_frame_device; compress_frame_device on 1-D float64 columns with
 every kind of end (phase_column: each frame the host path's, launches,
 short-superblock counters; a day's column against the 2-D frame of its
-whole superblocks, K1 and encode_short by events); K2 and K2b timed at
+whole superblocks, K1 and encode_short by events); the device frame's one
+K1 launch (phase_fold: K1 places every record by a decoupled look-back)
+against the plain version and against K1's records placed by the public
+place_records, byte for byte over the capacity, at bpp 1-16 and 1 to
+16,384 superblocks, on 55 column lengths and over 200 calls back to back,
+every frame on dirtied memory; K2 and K2b timed at
 their paths' shapes beside their bounds; then DeviceCompressedArray(entropy=True) on 512 MiB of a
 low-cardinality byte column (K4 and K5 timed at its build's, to_array's and
 one slab read's shapes) and on the sorted int32; then the device
@@ -51,7 +56,9 @@ kernel against its plain version again at the shapes those paths give it,
 times the kernels with CUDA events and prints the kernels' JSON line. With
 --old-src (a checkout of an earlier commit), that commit's K2/K2b, K4, K5
 and K6 are timed beside these on the same inputs, in turns, and must give
-the same outputs. Any failure ends the run with a non-zero exit code. The
+the same outputs; so are its device frame compress (sorted int32 and a
+day's float64 column), K1 streams launch, K1b and place_records
+(phase_fold_times). Any failure ends the run with a non-zero exit code. The
 last line is {"ok": true, "device": {...}}.
 """
 
@@ -125,6 +132,11 @@ KINDS = ("sorted", "random", "same", "rle", "smallrange")
 # bpp of the small grid: the encode's tiling changes at 5, 16, 17, 32 and 64
 # (blocks a tile, plane groups above 64)
 GRID_BPP = (1, 2, 3, 4, 5, 8, 16, 17, 24, 32, 64, 300)
+DIRTY_SMALL = 64  # 2 MiB segments of small blocks dirty_block fills
+# the folded frame's grid (phase_fold): bpp, and superblocks a frame around
+# one wave of K1 (132 SMs x 4 resident CTAs = 528) and well past it
+FOLD_BPP = (1, 2, 3, 4, 8, 16)
+FOLD_N_SB = (1, 2, 527, 528, 529, 4096, 16384)
 
 
 def load_tool(name):
@@ -239,11 +251,17 @@ def dirty_block(nbytes, dev):
     """Fill nbytes of device memory with 0xFF and free them: with the
     allocator's other free blocks released first, it hands that block to the
     next tensor of the size, so a byte a kernel leaves unwritten there reads
-    0xFF, not an earlier tensor's zero. Returns the block's address (on the
-    CPU, None)."""
+    0xFF, not an earlier tensor's zero. The small blocks (K1's look-back
+    state among them) come from 2 MiB segments of their own: DIRTY_SMALL
+    of them are filled with 0xFF and freed too, so the next small tensors
+    take dirtied memory as well. Returns the block's address (on the CPU,
+    None)."""
     if dev.type != "cuda":
         return None
     torch.cuda.empty_cache()
+    small = [torch.full((1 << 20,), 0xFF, dtype=torch.uint8, device=dev)
+             for _ in range(2 * DIRTY_SMALL)]
+    del small
     t = torch.full((nbytes,), 0xFF, dtype=torch.uint8, device=dev)
     return t.data_ptr()
 
@@ -276,9 +294,12 @@ KERNEL_COUNTS = ((encode_kernel, "launches", "encode_blocks"),
                  (seqdec_kernel, "launches", "seq_decode"),
                  (seq_exec, "launches", "seq_exec"))
 # the kernels' launches and, counted apart, the frame-mode K1 launches that
-# zeroed a frame's capacity (also in encode_blocks) and encode_short's
+# zeroed a frame's capacity and that placed their own records (both also in
+# encode_blocks) and encode_short's
 COUNTS = KERNEL_COUNTS + ((encode_kernel, "launches_frame_tail",
                            "frame_tail"),
+                          (encode_kernel, "launches_frame_placed",
+                           "frame_placed"),
                           (encode_kernel, "launches_short", "encode_short"))
 SOURCES = ("encode_blocks", "decode_rows", "huff_encode", "huff_decode",
            "fse_encode", "seq_decode", "seq_exec")
@@ -368,8 +389,12 @@ def phase_kernels(dev):
             record("encode_blocks", encode_err(k, p), (bpp, kind, level))
             hdr = frame_header_bytes(n_sb * sb, sb, bpp, 1)
             cap = len(hdr) + n_sb * record_bound(nb, bpp)
+            reset_counts()
             k = frame_on_dirty(lambda: encode_kernel.encode_superblocks_frame(
                 x, bpp, level, hdr), cap, dev, (bpp, kind, level))
+            c = read_counts()
+            check((c["encode_blocks"], c["frame_placed"]) == (1, 1),
+                  ("frame launches", bpp, kind, level, c))
             p = encode_kernel.encode_superblocks_frame_plain(x, bpp, level,
                                                              hdr)
             check(int(k[1]) == int(p[1]), ("frame length", bpp, kind, level))
@@ -432,8 +457,9 @@ def phase_kernels(dev):
     log(f"kernels == plain versions on the card: {n} decode cases over bpp "
         f"{GRID_BPP} x 3 and 1 superblocks x 5 kinds x levels 1,2; the "
         "encodes also at block level 0: encode_blocks as streams and as a "
-        "frame (and place_records alone; both frames on a dirtied block, "
-        "zeros past the length), encode_blocks_index at the longest "
+        "frame (one launch, records placed by K1; and place_records alone; "
+        "both frames on a dirtied block, zeros past the length), "
+        "encode_blocks_index at the longest "
         "record's width and at "
         "record_bound (zeros past every record), "
         "decode_rows_derive in 'jb' and 'bj' order")
@@ -1101,15 +1127,15 @@ def phase_sharding(dev, raw, frames, card):
                     x, 4, 1, mesh))):
             reset_counts()
             frame, length = fn()
-            res["launches"][f"mesh device frame {name}"] = read_counts()
-            check(res["launches"][f"mesh device frame {name}"]
-                  ["encode_blocks"] == 2, f"mesh device frame {name}: not "
-                  "two K1 launches (records, place_records)")
-            # the ragged segment's K1 zeroes its tail, the gathered
-            # variant's place_records its own
-            check(res["launches"][f"mesh device frame {name}"]
-                  ["frame_tail"] == (name == "ragged"),
-                  f"mesh device frame {name}: frame-mode K1 launches")
+            c = read_counts()
+            res["launches"][f"mesh device frame {name}"] = c
+            # the ragged segment: one frame-mode K1, which zeroes its tail
+            # and places its records; the gathered variant: K1's records
+            # mode, then place_records, which zeroes its own
+            ragged = name == "ragged"
+            check((c["encode_blocks"], c["frame_tail"], c["frame_placed"])
+                  == ((1, 1, 1) if ragged else (2, 0, 0)),
+                  f"mesh device frame {name}: K1 launches {c}")
             check(frame[:length].cpu().numpy().tobytes() == frames[1],
                   f"compress_device_sharded ({name}) differs from "
                   "compress_frame_device")
@@ -1419,9 +1445,10 @@ def phase_device(dev, raw, frame1):
     frame, length = compress_frame_device(x, 4, 1)
     torch.cuda.synchronize()
     fc_s = time.perf_counter() - t0
-    res["launches"]["frame_compress"] = read_counts()
-    check(res["launches"]["frame_compress"]["frame_tail"] == 1,
-          "compress_frame_device: K1 did not zero the frame's tail")
+    res["launches"]["frame_compress"] = c = read_counts()
+    check((c["encode_blocks"], c["frame_tail"], c["frame_placed"])
+          == (1, 1, 1), f"compress_frame_device: not one frame-mode K1 "
+          f"launch that zeroes the frame and places the records: {c}")
     got = frame[: int(length)].cpu().numpy().tobytes()
     check(np.array_equal(stt.decompress(got, 4, device=dev), raw),
           "compress_frame_device round trip")
@@ -1449,24 +1476,18 @@ def phase_device(dev, raw, frame1):
           "compress_frame_device on a dirtied block differs")
     del frame
     warm_ms = cuda_ms(lambda: compress_frame_device(x, 4, 1), 3)
-    # its two launches apart, as the frame mode makes them (K1 zeroes the
-    # frame, place_records moves the records) and as the public
-    # place_records does (it zeroes the tail after K1's records mode)
+    # its one launch (K1 zeroes the frame and places the records), and the
+    # same frame by two: K1's records mode, then the public place_records
+    # (it zeroes the tail itself)
     rb = record_bound(nb, 4)
-    fbuf = torch.empty(cap, dtype=torch.uint8, device=dev)
     rows_t, tot_t = encode_kernel._encode_rows(x, 4, 2, rb, 4, False,
                                                False)[:2]
-    launch_ms = [
-        cuda_ms(lambda: encode_kernel._encode_rows(
-            x, 4, 2, rb, 4, False, False, fbuf, len(hdr)), 10),
-        cuda_ms(lambda: encode_kernel._place_records(
-            rows_t, tot_t, hdr, nb, 4, fbuf), 10)]
+    launch_ms = cuda_ms(lambda: encode_kernel._frame(x, 4, 2, hdr, rb), 10)
     apart_ms = [
         cuda_ms(lambda: encode_kernel._encode_rows(x, 4, 2, rb, 4, False,
                                                    False), 10),
-        cuda_ms(lambda: encode_kernel._place_records(rows_t, tot_t, hdr, nb,
-                                                     4), 10)]
-    del fbuf
+        cuda_ms(lambda: encode_kernel.place_records(rows_t, tot_t, hdr, nb,
+                                                    4), 10)]
     placed, placed_len = frame_on_dirty(lambda: encode_kernel.place_records(
         rows_t, tot_t, hdr, nb, 4), cap, dev, ("place_records", HEADLINE_MB))
     check(int(placed_len) == len(got)
@@ -1481,9 +1502,9 @@ def phase_device(dev, raw, frame1):
     log(f"compress_frame_device {HEADLINE_MB} MiB level 1: first call "
         f"{fc_s:.4f} s = {res['frame_compress']['gbps']:.4f} GB/s, warm "
         f"{warm_ms:.4f} ms = {res['frame_compress']['warm_gbps']:.4f} GB/s "
-        f"(encode and tail {launch_ms[0]:.4f} + place_records "
-        f"{launch_ms[1]:.4f} ms; K1 records mode {apart_ms[0]:.4f} + "
-        f"place_records zeroing the tail {apart_ms[1]:.4f} ms); frame == "
+        f"(its K1 launch {launch_ms:.4f} ms; K1 records mode "
+        f"{apart_ms[0]:.4f} + place_records zeroing the tail "
+        f"{apart_ms[1]:.4f} ms); frame == "
         "the host-path frame and the plain version's records, zeros past "
         "it, decodes to the input; again on a dirtied block and from "
         "place_records alone: the same frame, zeros past it; launches "
@@ -1519,7 +1540,7 @@ def phase_column(dev):
     1) of every kind of end: none, whole blocks, a partial segment, a length
     no multiple of 8, the small-input route (ZSTD and COPY), a column
     shorter than a superblock: each frame the host path's and the CPU plain
-    version's, zeros past it, its launches (K1 and place_records, and
+    version's, zeros past it, its launches (one frame-mode K1, and
     encode_short for a partial segment) and engine.short_superblocks*. Then
     a day's column: its frame on a dirtied block, its records those of the
     2-D frame of its whole superblocks and of its short superblock alone,
@@ -1555,8 +1576,8 @@ def phase_column(dev):
               and torch.equal(frame.cpu(), plain),
               f"column {name}: differs from the CPU plain version")
         check(not frame[int(length):].any(), f"column {name}: padding")
-        block = n_full > 0 or r >= eng.SMALL_INPUT
-        check(counts["encode_blocks"] == 2 * block
+        block = int(n_full > 0 or r >= eng.SMALL_INPUT)
+        check(counts["encode_blocks"] == counts["frame_placed"] == block
               and counts["encode_short"] == int(
                   r >= eng.SMALL_INPUT and r % blk > 0),
               f"column {name}: launches {counts}")
@@ -1620,11 +1641,237 @@ def phase_column(dev):
     return res
 
 
+def fold_data(dev, bpp, n_sb, sb):
+    """n_sb superblocks of sb bytes made on the card: a ts-f64 walk's bytes,
+    every third superblock and the first eight random bytes (records at
+    their bound, filling their slots exactly) and every third from the
+    third a constant (records of a few bytes)."""
+    x = ts_column(dev, n_sb * sb, seed=bpp).view(n_sb, sb).clone()
+    g = torch.Generator(device=dev)
+    g.manual_seed(n_sb)
+    for rows in (x[0::3], x[:8]):
+        rows.copy_(torch.randint(0, 256, rows.shape, generator=g, device=dev,
+                                 dtype=torch.uint8))
+    x[2::3] = 7
+    return x
+
+
+def plain_frame(x, bpp, hdr, cap):
+    """The frame of (n_sb, sb) x by the plain version on the card (its
+    records in slices, header first, zeros to cap)."""
+    nb = x.shape[1] // (256 * bpp)
+    rows, totals = in_chunks(
+        lambda a: encode_kernel.encode_superblocks_index_plain(
+            a, bpp, 2, record_bound(nb, bpp))[:2], (x,))
+    body = rows[torch.arange(rows.shape[1], device=x.device)
+                < totals[:, None]]
+    frame = torch.zeros(cap, dtype=torch.uint8, device=x.device)
+    frame[: len(hdr)] = torch.tensor(list(hdr), dtype=torch.uint8)
+    frame[len(hdr) : len(hdr) + body.numel()] = body
+    return frame, len(hdr) + body.numel()
+
+
+def column_ends(bpp, sb):
+    """Eleven column lengths for a bpp: no short superblock, whole blocks,
+    a partial segment with lines and without, lengths no multiple of the
+    element, the small-input route (under 128 bytes past the superblocks,
+    at 127 and at 128), a column shorter than a superblock and than one
+    block, the longest short superblock."""
+    blk = 256 * bpp
+    return [2 * sb, sb + 3 * blk, sb + 3 * blk + 32 * bpp + 7,
+            sb + blk + min(56, 16 * bpp - 1), 3 * sb + blk + 701,
+            sb + 100, sb + 127, sb + 128, 5000, 100, 2 * sb - 1]
+
+
+def phase_fold(dev):
+    """The frame mode's one launch (K1 zeroes the frame, encodes, finds each
+    record's place by a decoupled look-back and copies the record there)
+    against two references, byte for byte over the whole capacity: the
+    plain version on the card and K1's records placed by the public
+    place_records. The grid: FOLD_BPP x FOLD_N_SB superblocks (fold_data),
+    each frame on a dirtied block with dirtied small blocks (the look-back
+    state), one K1 launch and no place_records a frame; 55 column lengths
+    (column_ends at bpp 1, 2, 4, 8, 16) against the CPU plain version, on
+    dirtied blocks (phase_column holds bpp 8 to the host path); then 200
+    calls back to back on one stream over 4 inputs (2-D at bpp 4, columns
+    at bpp 8), each frame its input's first."""
+    res = {"grid": 0, "columns": 0}
+    for bpp in FOLD_BPP:
+        sb = fr.super_block_size(256 * bpp)
+        nb = sb // (256 * bpp)
+        for n_sb in FOLD_N_SB:
+            x = fold_data(dev, bpp, n_sb, sb)
+            hdr = frame_header_bytes(n_sb * sb, sb, bpp, 1)
+            cap = len(hdr) + n_sb * record_bound(nb, bpp)
+            what = ("fold", bpp, n_sb)
+            reset_counts()
+            frame, length = frame_on_dirty(
+                lambda: compress_frame_device(x, bpp, 1), cap, dev, what)
+            c = read_counts()
+            check((c["encode_blocks"], c["frame_placed"], c["frame_tail"])
+                  == (1, 1, 1), (*what, "launches", c))
+            want, n = plain_frame(x, bpp, hdr, cap)
+            check(int(length) == n and torch.equal(frame, want),
+                  (*what, "differs from the plain version"))
+            del want
+            rows, totals = encode_kernel.encode_superblocks_records(
+                x, bpp, 2)[:2]
+            placed, placed_len = encode_kernel.place_records(
+                rows, totals - 4, hdr, nb, bpp)
+            check(int(placed_len) == n and torch.equal(frame, placed),
+                  (*what, "differs from the records placed by "
+                   "place_records"))
+            del x, frame, rows, placed
+            res["grid"] += 1
+    log(f"folded frames == the plain version and K1 records + place_records "
+        f"over the capacity: bpp {FOLD_BPP} x {FOLD_N_SB} superblocks, each "
+        "on dirtied blocks, one K1 launch a frame")
+
+    base = ts_column(dev, 8 * (300_000 + 4 * 16384))
+    for bpp in (1, 2, 4, 8, 16):
+        sb = fr.super_block_size(256 * bpp)
+        for n in column_ends(bpp, sb):
+            col = base[:n].clone()
+            n_full, r = divmod(n, sb)
+            block = int(n_full > 0 or r >= eng.SMALL_INPUT)
+            cap = compress_frame_device(col, bpp, 1)[0].numel()
+            reset_counts()
+            frame, length = frame_on_dirty(
+                lambda: compress_frame_device(col, bpp, 1), cap, dev,
+                ("column", bpp, n))
+            c = read_counts()
+            check(c["encode_blocks"] == c["frame_placed"] == block
+                  and c["encode_short"] == int(r >= eng.SMALL_INPUT
+                                               and r % (256 * bpp) > 0),
+                  ("column", bpp, n, "launches", c))
+            plain, plain_len = compress_frame_device(col.cpu(), bpp, 1)
+            check(int(plain_len) == int(length)
+                  and torch.equal(frame.cpu(), plain),
+                  ("column", bpp, n, "differs from the CPU plain version"))
+            res["columns"] += 1
+    del base
+    log(f"{res['columns']} column lengths at bpp 1, 2, 4, 8, 16 == the CPU "
+        "plain version, on dirtied blocks; one K1 launch, and encode_short "
+        "for a partial segment")
+
+    sb = 131072
+    inputs = [fold_data(dev, 4, 600, sb), sorted_int32_device(dev, 600 * sb)]
+    for k, extra in enumerate((704, 5)):
+        inputs.append(ts_column(dev, 12 * sb + 3 * 2048 + extra, seed=20 + k))
+    refs = []
+    for k, x in enumerate(inputs):
+        frame, length = compress_frame_device(x, 4 if x.dim() == 2 else 8, 1)
+        if x.dim() == 2:
+            want, n = plain_frame(x, 4, frame_header_bytes(
+                x.numel(), sb, 4, 1), frame.numel())
+            check(int(length) == n and torch.equal(frame, want),
+                  ("back to back", k, "differs from the plain version"))
+        else:
+            plain, plain_len = compress_frame_device(x.cpu(), 8, 1)
+            check(int(plain_len) == int(length)
+                  and torch.equal(frame.cpu(), plain),
+                  ("back to back", k, "differs from the CPU plain version"))
+        refs.append((frame, int(length)))
+    torch.cuda.synchronize()
+    outs = [compress_frame_device(inputs[i % 4], 4 if i % 4 < 2 else 8, 1)
+            for i in range(200)]
+    torch.cuda.synchronize()
+    for i, (frame, length) in enumerate(outs):
+        want, n = refs[i % 4]
+        check(int(length) == n and torch.equal(frame, want),
+              ("back to back", i, "differs from its input's first frame"))
+    res["back_to_back"] = len(outs)
+    del outs, refs, inputs
+    torch.cuda.empty_cache()
+    log("200 calls back to back on one stream over 4 inputs (2-D at bpp 4, "
+        "columns at bpp 8): each frame its input's first")
+    return res
+
+
+def sorted_int32_device(dev, nbytes, seed=5):
+    """nbytes of sorted uint32 below 2^30 made on the card, (n, 131072)."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    v = torch.randint(0, 1 << 30, (nbytes // 4,), generator=g, device=dev,
+                      dtype=torch.int64).sort().values.to(torch.int32)
+    return v.view(torch.uint8).view(-1, 131072)
+
+
+def phase_fold_times(dev, old):
+    """The folded frame mode against the old two-launch frame (old: the
+    parent commit's package, load_old) in turns, outputs equal: the device
+    frame compress at the sorted cell's shape (4096 superblocks of sorted
+    int32) and on a day's float64 column; the old call's K1 and
+    place_records apart beside the new K1; the public place_records; K1's
+    streams-mode launch at 64 MiB and K1b at 512 MiB. ptxas's report of
+    both sources."""
+    res = {}
+    x = sorted_int32_device(dev, 512 * MIB)
+    col = ts_column(dev, 8 * COLUMN_SAMPLES)
+    for name, args in (("sorted", (x, 4, 1)), ("column", (col, 8, 1))):
+        res[name] = in_turns(
+            f"frame {name}", lambda: compress_frame_device(*args),
+            lambda: old.engine.compress_frame_device(*args), 10)
+    # the old call's two launches apart, beside the new one
+    sb = 131072
+    nb = sb // 1024
+    rb = record_bound(nb, 4)
+    hdr = frame_header_bytes(x.numel(), sb, 4, 1)
+    fbuf = torch.empty(len(hdr) + x.shape[0] * rb, dtype=torch.uint8,
+                       device=dev)
+    rows_t, tot_t = old.encode_kernel._encode_rows(x, 4, 2, rb, 4, False,
+                                                   False, fbuf, len(hdr))[:2]
+    t = in_turns_s({
+        "k1": lambda: encode_kernel._frame(x, 4, 2, hdr, rb),
+        "old_k1": lambda: old.encode_kernel._encode_rows(
+            x, 4, 2, rb, 4, False, False, fbuf, len(hdr)),
+        "old_place_records": lambda: old.encode_kernel._place_records(
+            rows_t, tot_t, hdr, nb, 4, fbuf)}, rounds=10, events=True)
+    res["sorted_launches_ms"] = {k[: -len("_events")]: v * 1e3
+                                 for k, v in t.items()
+                                 if k.endswith("_events")}
+    del fbuf, rows_t, tot_t
+    # the public place_records (the gathered mesh frame's), on K1's records
+    rows_r, tot_r = encode_kernel.encode_superblocks_records(x, 4, 2)[:2]
+    res["place_records"] = in_turns(
+        "place_records", lambda: encode_kernel.place_records(
+            rows_r, tot_r - 4, hdr, nb, 4),
+        lambda: old.encode_kernel.place_records(rows_r, tot_r - 4, hdr, nb,
+                                                4), 10)
+    del rows_r, tot_r
+    x64 = x[:512]
+    for _ in range(2):  # two rounds of turns each
+        for key, name, new, old_fn, reps in (
+                ("k1_streams_64mib", "K1 streams launch",
+                 lambda: encode_kernel._encode_rows(
+                     x64, 4, 2, rb - 4, 0, False, False)[1:4],
+                 lambda: old.encode_kernel._encode_rows(
+                     x64, 4, 2, rb - 4, 0, False, False)[1:4], 50),
+                ("k1b_512mib", "K1b",
+                 lambda: encode_kernel.encode_superblocks_index(x, 4, 2, rb),
+                 lambda: old.encode_kernel.encode_superblocks_index(
+                     x, 4, 2, rb), 20)):
+            res.setdefault(key, []).append(in_turns(name, new, old_fn, reps))
+    for name, path in (("new", _cuda.BUILD_DIR),
+                       ("old", os.path.join(os.path.dirname(
+                           old.encode_kernel.__file__), "..", "build"))):
+        with open(os.path.join(path, "encode_blocks.ptxas.txt")) as f:
+            res[f"ptxas_{name}"] = [ln.strip() for ln in f
+                                    if "registers" in ln or "spill" in ln
+                                    or "Compiling entry" in ln]
+    for k, v in res.items():
+        log(f"fold times {k}: {v}")
+    del x, col
+    torch.cuda.empty_cache()
+    return res
+
+
 def load_old(src):
     """The kernel modules of the package in another checkout (the parent
     commit's: the old design), loaded under the name old_stenos_tpu_torch
     with its own build directory: .decode_kernel (K2, K2b), .huff_kernel
-    (K4), .huff_decode_kernel (K5) and .fse_kernel (K6)."""
+    (K4), .huff_decode_kernel (K5), .fse_kernel (K6), .encode_kernel (K1,
+    K1b, place_records) and .engine."""
     pkg = os.path.join(os.path.abspath(src), "stenos_tpu_torch")
     spec = importlib.util.spec_from_file_location(
         "old_stenos_tpu_torch", os.path.join(pkg, "__init__.py"),
@@ -1633,10 +1880,11 @@ def load_old(src):
     sys.modules[spec.name] = mod
     spec.loader.exec_module(mod)
     return SimpleNamespace(**{
-        name.rsplit(".", 1)[1]: importlib.import_module(
+        name.rsplit(".", 1)[-1]: importlib.import_module(
             f"old_stenos_tpu_torch.{name}")
         for name in ("ops.decode_kernel", "entropy.huff_kernel",
-                     "entropy.huff_decode_kernel", "entropy.fse_kernel")})
+                     "entropy.huff_decode_kernel", "entropy.fse_kernel",
+                     "ops.encode_kernel", "engine")})
 
 
 def in_turns(name, new, old, reps, timers=(("ms", cuda_ms),)):
@@ -2596,8 +2844,9 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="chiprun_out/chip_smoke.json")
     ap.add_argument("--old-src", help="a checkout of an earlier commit: its "
-                    "K2/K2b, K4, K5 and K6 kernels are timed beside these, in "
-                    "turns")
+                    "K2/K2b, K4, K5 and K6 kernels and its device frame "
+                    "compress, K1 and place_records are timed beside these, "
+                    "in turns")
     ap.add_argument("--gloo-rank", type=int, help="run one of "
                     "phase_sharding's two gloo ranks (phase_sharding starts "
                     "them) and print its JSON line")
@@ -2633,11 +2882,16 @@ def main():
     log(f"  [{time.perf_counter() - t0:.1f} s]")
     colres = phase_column(dev)
     log(f"  [{time.perf_counter() - t0:.1f} s]")
+    colres["fold"] = phase_fold(dev)
+    log(f"  [{time.perf_counter() - t0:.1f} s]")
     times.update(times_dev)
     err["encode_blocks"] = max(err["encode_blocks"],
                                err_dev.pop("encode_blocks"))
     err.update(err_dev)
     old = load_old(args.old_src) if args.old_src else None
+    if old is not None:
+        colres["fold_times"] = phase_fold_times(dev, old)
+        log(f"  [{time.perf_counter() - t0:.1f} s]")
     dtimes = phase_decode_times(dev, raw, res[1]["frame"], old)
     log(f"  [{time.perf_counter() - t0:.1f} s]")
     for name, main_case in (("decode_rows", "k2_64mib"),

@@ -36,40 +36,72 @@
 //   - Each tile's output is built in shared memory at the phase of its
 //     place in device memory and stored as one span: 16-byte stores, bytes
 //     at the ragged ends. No per-plane slot buffer goes to device memory.
-//   - Frame mode: CTA s first zeroes slot s of the frame's capacity (the
-//     record bound behind the header) with 16-byte stores; the other CTAs
-//     of its SM analyse meanwhile. place_records then moves only the
-//     records (the zeros under them are written twice). On an H100 this
-//     adds ~0.055 ms to K1's ~1.04 ms at 512 MiB and takes ~0.20 ms off
-//     place_records; a slice of the slot after each tile's flush cost
-//     0.12 ms and spilled.
-// place_records (frame mode only): one CTA per record copies it from its
-//   row to its place behind the frame header (its base is the sum of the
-//   records before it), and CTA 0 writes the header and the frame length.
-//   Called on its own (zero_tail: no K1 zeroed the frame) it also zero-fills
-//   its share of the tail past the frame's length. A record's base is known
-//   only once every earlier superblock is encoded; a second launch costs
-//   the records' bytes twice (~118 MB at 512 MiB of sorted int32). The step
-//   left is to fold it into K1's frame mode: each CTA finds its base by a
-//   decoupled look-back over the totals of the CTAs before it and copies
-//   its record, still in L2, at its end.
+//   - Frame mode (the device frame: every record back to back behind the
+//     frame header, in one launch): CTA s first zeroes slot s of the
+//     frame's capacity (the record bound behind the header) with 16-byte
+//     stores, while the other CTAs of its SM analyse; it encodes its
+//     superblock into its row of rows (the record's place in the frame, its
+//     base, is the sum of the records before it, unknown while it is
+//     emitted) and publishes the record's size. Then it places the record
+//     of superblock s - lag, lag being the CTAs resident at once (132 SMs x
+//     4 on an H100): it finds that record's base by a decoupled look-back
+//     and copies it from its row into the frame. The last lag CTAs place
+//     their own records too. A CTA that placed its own record at once
+//     waited ~20-26 us of its ~115 us for the CTAs before it to finish
+//     (their ends spread as much), holding its SM slot: +0.2 ms on a call
+//     of 512 MiB; a lag behind, they are all done.
+//     The superblock index s is a ticket (an atomic count in the status
+//     array), so a CTA waits only on CTAs that started before it, in
+//     whatever order blocks are dispatched. Look-back state: one 64-bit
+//     word a superblock, flag in the top two bits (0 not ready, 1 the
+//     record's size, 2 the inclusive prefix of the sizes), zeroed with the
+//     ticket on the stream before the launch, in the same call. The placer
+//     of record j reads its size, then the words before it, one warp 32 at
+//     a time, back to the nearest inclusive prefix, and publishes j's. The
+//     CTA of superblock 0 writes the header, the placer of the last record
+//     the frame length.
+//     Ordering rule: CTA s makes its zeros and its record's bytes visible
+//     (each thread's fence, then a barrier) before it publishes its size;
+//     record j is copied only after its placer's look-back has seen j and
+//     every record before it published (each inclusive prefix was published
+//     after its own look-back saw the records before that one). Record j
+//     lies in [base_j, base_j + size_j) with base_j <= j * w and size_j <=
+//     w (w the slot's width, a record bound), so inside slots 0..j: every
+//     zero under it is in place before it is written, and no record reaches
+//     a later CTA's slot, so no later zero can land on it.
+//     On an H100 the zeros add ~0.055 ms to K1's ~1.04 ms at 512 MiB; a
+//     slice of the slot after each tile's flush cost 0.12 ms and spilled.
+//     The placement adds ~0.06 ms to K1 at 512 MiB of sorted int32 and
+//     ~0.10 ms on a day's float64 column, where place_records took 0.09
+//     and 0.30 ms: the record is read back from device memory, four words
+//     a thread in flight (one: +1%; eight spill), and while a CTA copies
+//     the other CTAs of its SM do not take up its share. Streaming stores
+//     for the zeros and an L2 prefetch of the record did not pay.
+// place_records: one CTA per record copies it from its row to its place
+//   behind the frame header (its base is the sum of the records before it),
+//   zero-fills its share of the tail past the frame's length, and CTA 0
+//   writes the header and the frame length. The device frame does not run
+//   it (K1's frame mode places its own records); it builds a frame from
+//   rows gathered from several cards.
 // A column (a 1-D array of any length) ends in a short superblock: K1's
-//   last CTA encodes its whole blocks (nb_last of them) into the last row,
-//   encode_short (one CTA) appends the 0xFE marker and the partial segment
-//   of the bytes past them, and place_records places that record as any
-//   other: three launches, two when the column ends in whole blocks.
+//   last CTA encodes its whole blocks (nb_last of them) into the last row
+//   and places that record as any other; encode_short (one CTA) then
+//   appends the 0xFE marker and the partial segment of the bytes past them
+//   at the frame's length and rewrites the record's csize and the length:
+//   two launches, one when the column ends in whole blocks.
 //
 // Bound: integer instructions and their latency, not bytes. The row analysis
 // alone is ~11 32-bit integer instructions an input byte (plane decisions and
 // emission come on top): at 64 integer lanes a clock an SM that is ~0.35 ms
 // for 512 MiB on an H100 SXM, against ~0.2 ms for its bytes at 3.35 TB/s (the
-// input, the records and the sizes, each once; in frame mode the frame's
-// capacity of zeros as well, ~538 MB more: ~0.36 ms for all its bytes, about
-// its integer bound). The design gives every lane of a step work,
-// holds a thread to 64 registers so that 4 CTAs (32 warps) share an SM and
-// hide one another's shuffle, shared-memory and barrier latency, overlaps
-// each tile's load with the previous tile's analysis, and writes every
-// output byte once, coalesced.
+// input, the records and the sizes, each once). Frame mode moves more: the
+// frame's capacity of zeros, ~538 MB, and the records read back and written
+// again, ~0.43 ms for all its bytes, as much as its integer bound. The design
+// gives every lane of a step work, holds a thread to 64 registers so that 4
+// CTAs (32 warps) share an SM and hide one another's shuffle, shared-memory
+// and barrier latency, overlaps each tile's load with the previous tile's
+// analysis, and writes every output byte once (a frame's records twice: the
+// row, then the frame), coalesced.
 
 #include <cstdint>
 
@@ -311,37 +343,57 @@ __device__ __forceinline__ void flush(uint8_t* dst, const uint8_t* win,
 
 // src[i] -> dst[i] for i < n, any alignments: whole 16-byte words of dst
 // from two aligned 16-byte loads of src and a funnel shift, bytes at the
-// ragged ends
+// ragged ends. kU words a thread in flight; with kU > 1 (K1's frame mode)
+// src is read through L2 only: another CTA wrote it in the same launch,
+// most of it long enough ago to be in device memory again (one word at a
+// time, a copy was bound by its latency), and an SM's L1 may hold an older
+// copy of a word that straddles two rows.
+template <int kU>
 __device__ __forceinline__ void copy_bytes(uint8_t* dst, const uint8_t* src,
                                            long long n, int t) {
+    auto ld8 = [](const uint8_t* p) { return kU > 1 ? __ldcg(p) : *p; };
+    auto ld16 = [](const uint4* p) { return kU > 1 ? __ldcg(p) : *p; };
     const uintptr_t d0 = (uintptr_t)dst, d1 = d0 + n;
     const uintptr_t a0 = min(d1, (d0 + 15) & ~(uintptr_t)15);
     const uintptr_t a1 = max(a0, d1 & ~(uintptr_t)15);
     for (uintptr_t q = d0 + t; q < a0; q += kThreads)
-        *(uint8_t*)q = src[q - d0];
+        *(uint8_t*)q = ld8(src + (q - d0));
     for (uintptr_t q = a1 + t; q < d1; q += kThreads)
-        *(uint8_t*)q = src[q - d0];
+        *(uint8_t*)q = ld8(src + (q - d0));
     const uint8_t* s0 = src + (a0 - d0);
     const int sh = (int)((uintptr_t)s0 & 15);
     const uint4* sw = reinterpret_cast<const uint4*>(s0 - sh);
     uint4* dw = reinterpret_cast<uint4*>(a0);
     const long long nw = (long long)(a1 - a0) >> 4;
     const int qw = sh >> 2, bits = 8 * (sh & 3);
-    for (long long k = t; k < nw; k += kThreads) {
-        const uint4 lo = sw[k];
-        // the next word only when the shifted word reaches into it (its
-        // start then lies inside the record)
-        const uint4 hi = sh ? sw[k + 1] : lo;
-        const unsigned u[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-        unsigned o[5];
+    for (long long k0 = t; k0 < nw; k0 += kU * kThreads) {
+        uint4 lo[kU], hi[kU];
 #pragma unroll
-        for (int i = 0; i < 5; ++i)
-            o[i] = qw == 0 ? u[i] : qw == 1 ? u[i + 1]
-                 : qw == 2 ? u[i + 2] : u[min(i + 3, 7)];
-        dw[k] = make_uint4(__funnelshift_r(o[0], o[1], bits),
-                           __funnelshift_r(o[1], o[2], bits),
-                           __funnelshift_r(o[2], o[3], bits),
-                           __funnelshift_r(o[3], o[4], bits));
+        for (int u = 0; u < kU; ++u) {
+            const long long k = k0 + u * kThreads;
+            if (k < nw) {
+                lo[u] = ld16(sw + k);
+                // the next word only when the shifted word reaches into it
+                // (its start then lies inside the record)
+                hi[u] = sh ? ld16(sw + k + 1) : lo[u];
+            }
+        }
+#pragma unroll
+        for (int u = 0; u < kU; ++u) {
+            const long long k = k0 + u * kThreads;
+            if (k >= nw) break;
+            const unsigned w[8] = {lo[u].x, lo[u].y, lo[u].z, lo[u].w,
+                                   hi[u].x, hi[u].y, hi[u].z, hi[u].w};
+            unsigned o[5];
+#pragma unroll
+            for (int i = 0; i < 5; ++i)
+                o[i] = qw == 0 ? w[i] : qw == 1 ? w[i + 1]
+                     : qw == 2 ? w[i + 2] : w[min(i + 3, 7)];
+            dw[k] = make_uint4(__funnelshift_r(o[0], o[1], bits),
+                               __funnelshift_r(o[1], o[2], bits),
+                               __funnelshift_r(o[2], o[3], bits),
+                               __funnelshift_r(o[3], o[4], bits));
+        }
     }
 }
 
@@ -358,6 +410,84 @@ __device__ __forceinline__ void zero_fill(uint8_t* a, uint8_t* b, int t) {
     for (uintptr_t q = hb + t; q < pb; q += kThreads) *(uint8_t*)q = 0;
 }
 
+// The device frame's arguments in frame mode (frame null in the others):
+// the capacity cap behind an hlen-byte header (h0, h1 little-endian, hlen
+// <= 16), the length, the look-back status (n_sb words, then the ticket
+// count), zeroed before the launch, and the lag (the CTAs resident at once).
+struct Frame {
+    uint8_t* frame;
+    long long cap;
+    unsigned long long h0, h1;
+    long long* length;
+    unsigned long long* status;
+    long long lag;
+    int hlen;
+};
+
+constexpr unsigned long long kSize = 1ull << 62;    // a record's size
+constexpr unsigned long long kPrefix = 2ull << 62;  // an inclusive prefix
+constexpr unsigned long long kValue = kSize - 1;
+
+__device__ __forceinline__ unsigned long long load_gpu(
+        const unsigned long long* p) {
+    unsigned long long v;
+    asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p)
+                 : "memory");
+    return v;
+}
+__device__ __forceinline__ void store_gpu(unsigned long long* p,
+                                          unsigned long long v) {
+    asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v)
+                 : "memory");
+}
+
+// One warp: waits for record j's size, sums the records before j by a
+// decoupled look-back over status (back to the nearest inclusive prefix),
+// fences its reads, publishes j's inclusive prefix and returns (exclusive
+// prefix, size) on every lane.
+__device__ longlong2 look_back(unsigned long long* status, long long j,
+                               int lane) {
+    unsigned long long v;
+    while (!((v = load_gpu(status + j)) >> 62)) __nanosleep(64);
+    const long long n = (long long)(v & kValue);
+    long long before = 0;
+    for (long long w = j - 1; w >= 0; w -= 32) {
+        const long long i = w - lane;
+        // before record 0: an inclusive prefix of 0
+        while (!__all_sync(kFull,
+                           (v = i >= 0 ? load_gpu(status + i) : kPrefix)
+                           >> 62))
+            __nanosleep(64);
+        const unsigned pre = __ballot_sync(kFull, (v >> 62) == 2);
+        // the nearest word with a prefix ends the look-back
+        const int stop = pre ? __ffs(pre) - 1 : 31;
+        long long x = lane <= stop ? (long long)(v & kValue) : 0;
+#pragma unroll
+        for (int o = 16; o; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
+        before += x;
+        if (pre) break;
+    }
+    __threadfence();  // every lane's reads, before the prefix is out
+    if (lane == 0) store_gpu(status + j, kPrefix | (before + n));
+    return make_longlong2(before, n);
+}
+
+// The whole CTA places record j (rows row j, its bytes fenced before its
+// size was published) behind the frame header; the one of the last
+// superblock writes the frame length.
+__device__ void place(const Frame& fr, const uint8_t* out, long long row_w,
+                      long long j, int t, longlong2& s_rec) {
+    if (t < 32) {
+        const longlong2 r = look_back(fr.status, j, t);
+        if (t == 0) s_rec = r;
+    }
+    __syncthreads();
+    const longlong2 r = s_rec;
+    copy_bytes<4>(fr.frame + fr.hlen + r.x, out + j * row_w, r.y, t);
+    if (t == 0 && j + 1 == gridDim.x) *fr.length = fr.hlen + r.x + r.y;
+    __syncthreads();  // s_rec is rewritten by the next record
+}
+
 struct Geometry {
     int tile_blocks;  // whole blocks a tile; 0: a block by groups of 16 planes
     int pad;          // stage bytes after every 16 elements
@@ -368,31 +498,38 @@ struct Geometry {
 // Row s of out (row_w bytes): [record header (rec = 4 bytes) | stream |
 // zeros up to row_w if zero_tail]. totals[s] is the stream length. Every
 // superblock has nb blocks but, in a column (kColumn), the last, which has
-// nb_last (the short superblock's whole blocks). kColumn is a template
-// argument so that whole superblocks run the code they ran before columns
-// (64 registers, no spills), as the one extra live count spills. Frame
-// mode (frame not null): CTA s first zeroes slot s of the frame's capacity
-// cap behind its hlen-byte header, [hlen + s*w, hlen + (s+1)*w) with w =
-// (cap - hlen) / n_sb, for place_records to write the records over.
-template <bool kColumn>
+// nb_last (the short superblock's whole blocks). kColumn and kFrame are
+// template arguments so that the streams, records and index modes run the
+// code they ran before columns and frames (64 registers, no spills), as
+// the column's one extra live count spills. Frame mode (kFrame, fr): CTA s
+// takes superblock s by ticket, first zeroes slot s of the frame's
+// capacity behind the header, [hlen + s*w, hlen + (s+1)*w) with w = (cap -
+// hlen) / n_sb, and at its end places its record (place_own).
+template <bool kColumn, bool kFrame>
 __global__ void __launch_bounds__(kThreads, 4)
 encode_superblocks(const uint8_t* __restrict__ data, int nb, int nb_last,
                    int bpp, int level, uint8_t* __restrict__ out,
                    long long row_w, int rec, int zero_tail,
                    int* __restrict__ totals,
                    int* __restrict__ bsizes, int* __restrict__ fsizes,
-                   int* __restrict__ plane_off, uint8_t* __restrict__ frame,
-                   long long cap, int hlen, Geometry geo) {
+                   int* __restrict__ plane_off, Frame fr, Geometry geo) {
     extern __shared__ __align__(16) uint8_t smem[];
     __shared__ int s_ps[2][16];
     __shared__ int s_bstart[kMaxTile + 1];
+    __shared__ longlong2 s_rec;  // frame mode: the ticket, then a record
 
     const int t = threadIdx.x;
     const int lane = t & 31;
     const int q = t >> 4;          // plane slot of the step
     const int r = t & 15;          // row of the plane
     const int seg = lane & 16;     // the half-warp's ballot bits
-    const long long sb = blockIdx.x;
+    long long sb = blockIdx.x;
+    if (kFrame) {
+        if (t == 0)
+            s_rec.x = (long long)atomicAdd(fr.status + gridDim.x, 1ull);
+        __syncthreads();
+        sb = s_rec.x;
+    }
     const int hdr_w = (bpp + 1) / 2;
     const long long bbytes = 256LL * bpp;
     const uint8_t* src = data + sb * nb * bbytes;
@@ -421,9 +558,13 @@ encode_superblocks(const uint8_t* __restrict__ data, int nb, int nb_last,
         ++step;
     };
 
-    if (frame) {  // frame mode: slot sb of the capacity behind the header
-        const long long w = (cap - hlen) / gridDim.x;
-        zero_fill(frame + hlen + sb * w, frame + hlen + (sb + 1) * w, t);
+    if (kFrame) {  // slot sb of the capacity behind the header
+        const long long w = (fr.cap - fr.hlen) / gridDim.x;
+        zero_fill(fr.frame + fr.hlen + sb * w,
+                  fr.frame + fr.hlen + (sb + 1) * w, t);
+        if (sb == 0 && t < fr.hlen)
+            fr.frame[t] = (uint8_t)(
+                (t < 8 ? fr.h0 >> (8 * t) : fr.h1 >> (8 * (t - 8))) & 255);
     }
 
     if (geo.tile_blocks) {
@@ -557,19 +698,27 @@ encode_superblocks(const uint8_t* __restrict__ data, int nb, int nb_last,
     if (t == 0) totals[sb] = run;
     if (rec && t < 4) row[t] = (uint8_t)(t == 0 ? 1 : run >> (8 * (t - 1)));
     if (zero_tail) zero_fill(row + rec + run, row + row_w, t);
+    if (kFrame) {
+        __threadfence();  // this thread's zeros and record bytes, then
+        __syncthreads();  // the record's size
+        if (t == 0) store_gpu(fr.status + sb, kSize | (rec + run));
+        // the record a lag behind, whose predecessors are done by now; the
+        // last lag CTAs also place their own
+        if (sb >= fr.lag) place(fr, out, row_w, sb - fr.lag, t, s_rec);
+        if (sb + fr.lag >= gridDim.x) place(fr, out, row_w, sb, t, s_rec);
+    }
 }
 
-// Frame mode: record s (rows[s, :totals[s] + 4]) goes behind the header at
-// hlen + the sum of the records before it; if zero_tail, the tail up to cap
-// is zeroed in n_sb shares (else K1's frame mode has zeroed it); CTA 0
-// writes the header (h0, h1 little-endian, hlen <= 16 bytes) and the frame
-// length.
+// Record s (rows[s, :totals[s] + 4]) goes behind the header at hlen + the
+// sum of the records before it; the tail up to cap is zeroed in n_sb
+// shares; CTA 0 writes the header (h0, h1 little-endian, hlen <= 16 bytes)
+// and the frame length.
 __global__ void __launch_bounds__(kThreads)
 place_records(const uint8_t* __restrict__ rows, long long row_w,
               const int* __restrict__ totals, int n_sb,
               uint8_t* __restrict__ frame, long long cap,
               unsigned long long h0, unsigned long long h1, int hlen,
-              int zero_tail, long long* __restrict__ length) {
+              long long* __restrict__ length) {
     __shared__ long long s_red[2][kThreads / 32];
     const int t = threadIdx.x;
     const int s = blockIdx.x;
@@ -598,12 +747,10 @@ place_records(const uint8_t* __restrict__ rows, long long row_w,
     const long long len = hlen + all;
     const uint8_t* rec = rows + s * row_w;
     uint8_t* dst = frame + hlen + before;
-    copy_bytes(dst, rec, totals[s] + 4, t);
-    if (zero_tail) {
-        const long long share = (cap - len + n_sb - 1) / n_sb;
-        const long long z0 = min(cap, len + s * share);
-        zero_fill(frame + z0, frame + min(cap, z0 + share), t);
-    }
+    copy_bytes<1>(dst, rec, totals[s] + 4, t);
+    const long long share = (cap - len + n_sb - 1) / n_sb;
+    const long long z0 = min(cap, len + s * share);
+    zero_fill(frame + z0, frame + min(cap, z0 + share), t);
     if (s == 0) {
         if (t < hlen)
             frame[t] = (uint8_t)((t < 8 ? h0 >> (8 * t) : h1 >> (8 * (t - 8)))
@@ -612,20 +759,22 @@ place_records(const uint8_t* __restrict__ rows, long long row_w,
     }
 }
 
-// A column's short superblock, after encode_superblocks wrote the record of
-// its whole blocks into row (totals[s] = *total): one CTA appends the
-// 0xFE marker and the partial segment of the rbytes < 256 * bpp bytes past
-// those blocks (tail), as codec/encode_np.py's encode_partial: the block
+// A column's short superblock, after encode_superblocks placed the record
+// of its whole blocks (a stream of *total bytes) last in the frame, ending
+// at *length: one CTA appends, at *length, the 0xFE marker and the partial
+// segment of the rbytes < 256 * bpp bytes past those blocks (tail), as
+// codec/encode_np.py's encode_partial: the block
 // padded with the tail's last byte; with at least one whole line of 16
 // elements, the planes' code nibbles (ALL_SAME 0, else NORMAL 2; no RLE,
 // no ALL_RAW), then each plane's first byte (ALL_SAME) or the headers of its
 // `lines` whole rows, their minimums and the rows themselves; then the bytes
 // past the last whole line, raw. Planes go 16 at a time, a half-warp a
 // plane and a lane a row, through analyse at block level 0. Rewrites the
-// record's csize and *total.
+// record's csize and *length.
 __global__ void __launch_bounds__(kThreads)
 encode_short(const uint8_t* __restrict__ tail, int rbytes, int bpp,
-             uint8_t* __restrict__ row, int* __restrict__ total) {
+             uint8_t* __restrict__ frame, long long* __restrict__ length,
+             const int* __restrict__ total) {
     __shared__ __align__(16) uint8_t st[256 * 16];  // 16 planes' bytes
     __shared__ int s_ps[16];
     __shared__ uint8_t s_code[16];
@@ -637,9 +786,11 @@ encode_short(const uint8_t* __restrict__ tail, int rbytes, int bpp,
     const int nib = (1 + lines) >> 1;  // row-header bytes of a NORMAL plane
     const unsigned whole = (1u << lines) - 1;
     const int base = *total;
+    const long long end = *length;
+    uint8_t* row = frame + end - 4 - base;  // the record in the frame
     const uint8_t pad = tail[rbytes - 1];
-    uint8_t* out = row + 4 + base + 1;  // behind the stream and the marker
-    __syncthreads();  // every thread has read *total before it is rewritten
+    uint8_t* out = frame + end + 1;  // behind the stream and the marker
+    __syncthreads();  // every thread has read *length before it is rewritten
     int carry = lines ? (bpp + 1) / 2 : 0;
     for (int j0 = 0; lines && j0 < bpp; j0 += 16) {
         const int n = min(16, bpp - j0);
@@ -692,7 +843,7 @@ encode_short(const uint8_t* __restrict__ tail, int rbytes, int bpp,
         row[1] = (uint8_t)run;
         row[2] = (uint8_t)(run >> 8);
         row[3] = (uint8_t)(run >> 16);
-        *total = run;
+        *length = end + 1 + carry + rbytes - done;
     }
 }
 
@@ -702,25 +853,45 @@ encode_short(const uint8_t* __restrict__ tail, int rbytes, int bpp,
 // C interface (ctypes). Pointers are device pointers; the launch goes on
 // `stream`; the return value is cudaGetLastError() after the launch.
 
-// plane_off is null except in index mode, frame (cap bytes, hlen of them
-// the header) except in frame mode; the geometry is the host's launch plan
-// (ops/encode_kernel.py launch_plan), smem its shared-memory bytes.
+// plane_off is null except in index mode; frame (cap bytes behind an
+// hlen-byte header h0, h1; length; status, n_sb + 1 words of scratch) null
+// except in frame mode, where status is zeroed on the stream first; a
+// column (nb_last < nb) only in frame mode. The geometry is the host's
+// launch plan (ops/encode_kernel.py launch_plan), smem its shared-memory
+// bytes.
 extern "C" int stenos_encode_superblocks(
         const void* data, long long n_sb, int nb, int nb_last, int bpp,
         int level, void* out, long long row_w, int rec, int zero_tail,
         void* totals, void* bsizes, void* fsizes, void* plane_off,
-        void* frame, long long cap, int hlen, int tile_blocks, int pad,
-        int stage_bytes, int win_off, int codes_off, int smem, void* stream) {
+        void* frame, long long cap, int hlen, unsigned long long h0,
+        unsigned long long h1, void* length, void* status, int tile_blocks,
+        int pad, int stage_bytes, int win_off, int codes_off, int smem,
+        void* stream) {
     const Geometry geo{tile_blocks, pad, stage_bytes, win_off, codes_off};
-    const auto kernel = nb_last == nb ? encode_superblocks<false>
-                                      : encode_superblocks<true>;
+    Frame fr{(uint8_t*)frame, cap, h0, h1, (long long*)length,
+             (unsigned long long*)status, 0, hlen};
+    const auto kernel = !frame ? encode_superblocks<false, false>
+                        : nb_last == nb ? encode_superblocks<false, true>
+                                        : encode_superblocks<true, true>;
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
+    if (frame) {
+        int dev, sms, per_sm;
+        if ((e = cudaGetDevice(&dev)) != cudaSuccess
+            || (e = cudaDeviceGetAttribute(
+                    &sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess
+            || (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                    &per_sm, kernel, kThreads, smem)) != cudaSuccess
+            || (e = cudaMemsetAsync(status, 0, (n_sb + 1) * 8,
+                                    (cudaStream_t)stream)) != cudaSuccess)
+            return (int)e;
+        fr.lag = (long long)sms * (per_sm > 0 ? per_sm : 1);
+    }
     kernel<<<(unsigned)n_sb, kThreads, smem, (cudaStream_t)stream>>>(
         (const uint8_t*)data, nb, nb_last, bpp, level, (uint8_t*)out, row_w,
         rec, zero_tail, (int*)totals, (int*)bsizes, (int*)fsizes,
-        (int*)plane_off, (uint8_t*)frame, cap, hlen, geo);
+        (int*)plane_off, fr, geo);
     return (int)cudaGetLastError();
 }
 
@@ -729,20 +900,23 @@ extern "C" int stenos_place_records(const void* rows, long long row_w,
                                     void* frame, long long cap,
                                     unsigned long long h0,
                                     unsigned long long h1, int hlen,
-                                    int zero_tail, void* length,
-                                    void* stream) {
+                                    void* length, void* stream) {
     place_records<<<(unsigned)n_sb, kThreads, 0, (cudaStream_t)stream>>>(
         (const uint8_t*)rows, row_w, (const int*)totals, (int)n_sb,
-        (uint8_t*)frame, cap, h0, h1, hlen, zero_tail, (long long*)length);
+        (uint8_t*)frame, cap, h0, h1, hlen, (long long*)length);
     return (int)cudaGetLastError();
 }
 
 // tail: the rbytes (1 <= rbytes < 256 * bpp) bytes past the short
-// superblock's whole blocks; row and total: its record and stream length
+// superblock's whole blocks; frame and length: the frame K1 wrote, its
+// last record the short superblock's whole blocks; total: that record's
+// stream length
 extern "C" int stenos_encode_short(const void* tail, int rbytes, int bpp,
-                                   void* row, void* total, void* stream) {
+                                   void* frame, void* length,
+                                   const void* total, void* stream) {
     encode_short<<<1, kThreads, 0, (cudaStream_t)stream>>>(
-        (const uint8_t*)tail, rbytes, bpp, (uint8_t*)row, (int*)total);
+        (const uint8_t*)tail, rbytes, bpp, (uint8_t*)frame,
+        (long long*)length, (const int*)total);
     return (int)cudaGetLastError();
 }
 #endif

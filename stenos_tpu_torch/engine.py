@@ -27,10 +27,10 @@ and two device-resident paths with no host byte traffic:
   roundtrip_device       encode_superblocks_index (records + decode index)
                          -> decode_rows_derive on the records themselves.
   compress_frame_device  encode_superblocks_frame: the same kernel writes
-                         the records, a second launch moves them behind the
-                         frame header, in one buffer; a 1-D column of any
-                         length through encode_column_frame (a short last
-                         superblock, its partial segment by encode_short).
+                         the records behind the frame header, in one buffer,
+                         in one launch; a 1-D column of any length through
+                         encode_column_frame (a short last superblock, its
+                         partial segment by encode_short).
 
 Counterpart of stenos_tpu/engine_jax.py (JaxEngine, decompress_frame_batched,
 roundtrip_device, compress_frame_device_jit).
@@ -511,12 +511,12 @@ def compress_frame_device(data, bpp: int, level: int):
     at level 1; it decodes with decompress.
 
     data is (n_sb, sb), whole superblocks of any size that is a whole
-    number of blocks (two launches), or a contiguous 1-D column of any
+    number of blocks (one launch), or a contiguous 1-D column of any
     length, whose superblocks are the level's. A column that is no whole
     number of them ends in a short superblock of r bytes: its whole blocks
-    ride as one more row of K1, the partial segment of the bytes past them
-    is encoded on the card (encode_short), and place_records places its
-    record with the others: three launches (ops/encode_kernel.py
+    ride as one more row of K1, which places their record with the others,
+    and the partial segment of the bytes past them is encoded on the card
+    behind it (encode_short): two launches (ops/encode_kernel.py
     encode_column_frame). Under SMALL_INPUT bytes it takes the library's
     small-input route, its one host step: the r bytes are copied to the
     host (waiting for the card) and compressed there by libzstd (a ZSTD

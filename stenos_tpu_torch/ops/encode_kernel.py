@@ -29,19 +29,21 @@ copy: the sharded encode's rows (parallel/).
 
 encode_superblocks_frame(data, bpp, block_level, header) writes the records
 back to back behind a frame header, in one buffer (the device frame
-compress): the same kernel's records, the frame's capacity zeroed by the
-same launch, then a second launch, place_records, that moves each record
-to its place. place_records is a wrapper of its own too, which zeroes the
-tail itself. Its plain version is encode_superblocks_frame_plain.
+compress), in one launch of the same kernel: each CTA zeroes its slot of
+the frame's capacity, encodes its record into a staging row, finds the
+record's place by a decoupled look-back over the sizes of the records
+before it and copies it there. Its plain version is
+encode_superblocks_frame_plain. place_records(rows, totals, header, nb,
+bpp) builds the same frame from record rows made elsewhere (the gathered
+mesh frame), in a launch of its own that zeroes the tail too.
 
 encode_column_frame(data, bpp, block_level, header, sb) is the frame of a
 1-D column whose length is no whole number of superblocks: K1's frame mode
-with one more row, the short superblock's whole blocks; encode_short (one
-CTA) appends its partial segment to that row; place_records places every
-record. Its plain version is encode_column_frame_plain.
+with one more row, the short superblock's whole blocks, placed as any
+other record; encode_short (one CTA) appends its partial segment there, in
+the frame. Its plain version is encode_column_frame_plain.
 
-The streams and index modes are one launch each. launch_plan gives the
-kernel's shared-memory geometry for a bpp.
+launch_plan gives the kernel's shared-memory geometry for a bpp.
 """
 
 import ctypes
@@ -56,14 +58,16 @@ from ..utils import trace
 from . import _cuda
 from .compact import compact
 
-# launches of encode_superblocks (and, in frame mode, place_records) below
-# (chip_smoke.py reads these): K1's modes (streams, frame), and the index
-# mode (K1b), counted apart; launches_frame_tail counts the frame-mode K1
-# launches that zeroed the frame's capacity (also counted in launches);
-# launches_short counts encode_short's
+# launches of encode_superblocks and place_records below (chip_smoke.py
+# reads these): K1's modes (streams, records, frame) and place_records, and
+# the index mode (K1b), counted apart; launches_frame_tail counts the
+# frame-mode K1 launches that zeroed the frame's capacity and
+# launches_frame_placed those that placed their own records (both also
+# counted in launches); launches_short counts encode_short's
 launches = 0
 launches_index = 0
 launches_frame_tail = 0
+launches_frame_placed = 0
 launches_short = 0
 
 _P = ctypes.c_void_p
@@ -72,11 +76,11 @@ _I = ctypes.c_int
 _ULL = ctypes.c_ulonglong
 _SIGNATURES = {
     "stenos_encode_superblocks": [_P, _LL, _I, _I, _I, _I, _P, _LL, _I, _I,
-                                  _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I,
-                                  _I, _I, _I, _P],
-    "stenos_encode_short": [_P, _I, _I, _P, _P, _P],
-    "stenos_place_records": [_P, _LL, _P, _LL, _P, _LL, _ULL, _ULL, _I, _I,
-                             _P, _P],
+                                  _P, _P, _P, _P, _P, _LL, _I, _ULL, _ULL,
+                                  _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "stenos_encode_short": [_P, _I, _I, _P, _P, _P, _P],
+    "stenos_place_records": [_P, _LL, _P, _LL, _P, _LL, _ULL, _ULL, _I, _P,
+                             _P],
 }
 
 SMEM_LIMIT = 232448  # shared memory a CTA can use on Hopper
@@ -252,13 +256,12 @@ def place_records_plain(rows, totals, header: bytes, nb: int, bpp: int):
 def encode_superblocks_frame_plain(data, bpp: int, block_level: int,
                                    header: bytes, spare: int = 0):
     """Plain torch version of the frame layout: the index mode's records
-    placed behind the header by place_records_plain (each step under the
-    span of the launch it stands for), spare zeros more."""
+    placed behind the header by place_records_plain (under the span of the
+    one launch it stands for), spare zeros more."""
     with trace.span("stn.k1.launch", nbytes=data.numel(),
                     superblocks=data.shape[0]):
         rows, totals = encode_superblocks_index_plain(data, bpp,
                                                       block_level)[:2]
-    with trace.span("stn.place_records.launch", superblocks=data.shape[0]):
         frame, length = place_records_plain(
             rows, totals - 4, header, data.shape[1] // (256 * bpp), bpp)
     return torch.cat([frame, frame.new_zeros(spare)]), length
@@ -288,6 +291,7 @@ def encode_column_frame_plain(data, bpp: int, block_level: int,
     stream = torch.zeros(0, dtype=torch.uint8, device=dev)
     with trace.span("stn.k1.launch", nbytes=n_full * sb + nbs * blk,
                     superblocks=n_full + 1):
+        # K1 places every record, the short superblock's whole blocks too
         if n_full:
             rows, totals = encode_superblocks_index_plain(
                 data[: n_full * sb].view(n_full, sb), bpp, block_level)[:2]
@@ -306,12 +310,11 @@ def encode_column_frame_plain(data, bpp: int, block_level: int,
     n = stream.numel()
     parts += [torch.tensor([1, n & 255, (n >> 8) & 255, n >> 16],
                            dtype=torch.uint8, device=dev), stream]
-    with trace.span("stn.place_records.launch", superblocks=n_full + 1):
-        body = torch.cat(parts)
-        slot = column_slot(sb // blk if n_full else 0, r, bpp)
-        frame = body.new_zeros(len(header) + (n_full + 1) * slot)
-        frame[: body.numel()] = body
-        return frame, torch.tensor(body.numel(), dtype=torch.int64)
+    body = torch.cat(parts)
+    slot = column_slot(sb // blk if n_full else 0, r, bpp)
+    frame = body.new_zeros(len(header) + (n_full + 1) * slot)
+    frame[: body.numel()] = body
+    return frame, torch.tensor(body.numel(), dtype=torch.int64)
 
 
 def _check_args(name, data, bpp, block_level):
@@ -335,17 +338,19 @@ def _count(index: bool):
 
 
 def _encode_rows(data, bpp: int, block_level: int, row_w: int, rec: int,
-                 zero_tail: bool, index: bool, frame=None, hlen: int = 0,
+                 zero_tail: bool, index: bool, frame=None, header=b"",
                  column=None):
     """One launch of encode_superblocks: each superblock's stream (rec 0) or
     record (rec 4: [1, csize u24, stream]) at the start of its row of row_w
-    bytes, zeros after it when zero_tail. Frame mode (a frame tensor, behind
-    an hlen-byte header): the same launch zeroes frame[hlen:], one slot of
-    (len(frame) - hlen) / n_sb bytes a superblock. A column (a 1-D data,
-    column = (n_sb, nb, nb_last)): n_sb - 1 superblocks of nb blocks, then
-    the short superblock's nb_last whole blocks. Returns (rows, stream
-    totals, bsizes, fsizes, plane_off or None)."""
-    global launches_frame_tail
+    bytes, zeros after it when zero_tail. Frame mode (a frame tensor, rec
+    4): the same launch zeroes frame[len(header):], one slot of
+    (len(frame) - len(header)) / n_sb bytes a superblock, and writes the
+    header and every record back to back behind it (the rows stage them).
+    A column (a 1-D data, column = (n_sb, nb, nb_last)): n_sb - 1
+    superblocks of nb blocks, then the short superblock's nb_last whole
+    blocks. Returns (rows, stream totals, bsizes, fsizes, plane_off or
+    None, the frame's length 0-d int64 or None)."""
+    global launches_frame_tail, launches_frame_placed
     lib = _cuda.load("encode_blocks", _SIGNATURES)
     dev = data.device
     if column is None:
@@ -365,6 +370,12 @@ def _encode_rows(data, bpp: int, block_level: int, row_w: int, rec: int,
     fsizes = torch.empty((n_sb, nb), dtype=torch.int32, device=dev)
     plane_off = (torch.empty((n_sb, bpp * nb), dtype=torch.int32, device=dev)
                  if index else None)
+    length = status = None
+    h = header.ljust(16, b"\0")
+    if frame is not None:
+        length = torch.empty((), dtype=torch.int64, device=dev)
+        # the look-back state and the ticket, zeroed by the launch's entry
+        status = torch.empty(n_sb + 1, dtype=torch.int64, device=dev)
     with trace.span("stn.k1.launch", dev,
                     nbytes=((n_sb - 1) * nb + nb_last) * 256 * bpp,
                     superblocks=n_sb):
@@ -374,51 +385,37 @@ def _encode_rows(data, bpp: int, block_level: int, row_w: int, rec: int,
             bsizes.data_ptr(), fsizes.data_ptr(),
             plane_off.data_ptr() if index else None,
             None if frame is None else frame.data_ptr(),
-            0 if frame is None else frame.numel(), hlen,
+            0 if frame is None else frame.numel(), len(header),
+            int.from_bytes(h[:8], "little"), int.from_bytes(h[8:], "little"),
+            None if frame is None else length.data_ptr(),
+            None if frame is None else status.data_ptr(),
             plan["tile_blocks"], plan["pad"], plan["stage_bytes"],
             plan["win_off"], plan["codes_off"], plan["smem"],
             torch.cuda.current_stream(dev).cuda_stream), "encode_superblocks")
     _count(index)
     if frame is not None:
         launches_frame_tail += 1
-    return rows, totals, bsizes, fsizes, plane_off
+        launches_frame_placed += 1
+    return rows, totals, bsizes, fsizes, plane_off, length
 
 
-def _frame_buffer(header: bytes, n_sb: int, nb: int, bpp: int, dev,
-                  spare: int = 0):
-    """The frame's (capacity,) uint8 buffer, unwritten: len(header) + n_sb *
-    record_bound(nb, bpp) bytes, and spare bytes more."""
+def _frame(data, bpp: int, block_level: int, header: bytes, slot: int,
+           spare: int = 0, column=None):
+    """The frame mode's one K1 launch into a new frame of len(header) +
+    n_sb * slot bytes of capacity (slot at least a record bound) and spare
+    bytes more, zeroed apart. Returns (frame, stream totals, length)."""
     if len(header) > 16:
         raise ValueError("encode_superblocks_frame: header longer than 16")
-    return torch.empty(len(header) + n_sb * record_bound(nb, bpp) + spare,
-                       dtype=torch.uint8, device=dev)
-
-
-def _place_records(rows, totals, header: bytes, nb: int, bpp: int,
-                   frame=None):
-    """The frame mode's second launch: the records of rows (as
-    _encode_rows wrote them, rec 4) back to back behind header. Without a
-    frame it allocates one and zeroes the rest of its capacity; a frame
-    given has had frame[len(header):] zeroed by _encode_rows, and only
-    the header, the records and the length are written. Returns (frame,
-    length 0-d int64)."""
-    lib = _cuda.load("encode_blocks", _SIGNATURES)
-    dev = rows.device
-    n_sb = rows.shape[0]
-    zero_tail = frame is None
-    if zero_tail:
-        frame = _frame_buffer(header, n_sb, nb, bpp, dev)
-    length = torch.empty((), dtype=torch.int64, device=dev)
-    h = header.ljust(16, b"\0")
-    with trace.span("stn.place_records.launch", dev, superblocks=n_sb):
-        _cuda.check(lib.stenos_place_records(
-            rows.data_ptr(), rows.shape[1], totals.data_ptr(), n_sb,
-            frame.data_ptr(), frame.numel(), int.from_bytes(h[:8], "little"),
-            int.from_bytes(h[8:], "little"), len(header), int(zero_tail),
-            length.data_ptr(), torch.cuda.current_stream(dev).cuda_stream),
-            "place_records")
-    _count(False)
-    return frame, length
+    n_sb = data.shape[0] if column is None else column[0]
+    frame = torch.empty(len(header) + n_sb * slot + spare, dtype=torch.uint8,
+                        device=data.device)
+    body = frame
+    if spare:
+        body = frame[:-spare]
+        frame[-spare:].zero_()
+    _, totals, _, _, _, length = _encode_rows(
+        data, bpp, block_level, slot, 4, False, False, body, header, column)
+    return frame, totals, length
 
 
 def encode_superblocks(data, bpp: int, block_level: int):
@@ -430,8 +427,9 @@ def encode_superblocks(data, bpp: int, block_level: int):
             return encode_superblocks_plain(data, bpp, block_level)
     _check_args("encode_superblocks", data, bpp, block_level)
     nb = data.shape[1] // (256 * bpp)
-    rows, totals, bsizes, fsizes, _ = _encode_rows(
-        data, bpp, block_level, record_bound(nb, bpp) - 4, 0, False, False)
+    rows, totals, bsizes, fsizes = _encode_rows(
+        data, bpp, block_level, record_bound(nb, bpp) - 4, 0, False,
+        False)[:4]
     # the streams as wide as the longest (one device-to-host read): a view
     # of the stream-bound rows; no reader looks past totals, so no zeros
     return rows[:, :max(int(totals.max()), 1)], totals, bsizes, fsizes
@@ -458,7 +456,7 @@ def encode_superblocks_index(data, bpp: int, block_level: int,
     _check_args("encode_superblocks_index", data, bpp, block_level)
     rows, stream_totals, bsizes, fsizes, plane_off = _encode_rows(
         data, bpp, block_level, rows_width or record_bound(nb, bpp), 4, True,
-        True)
+        True)[:5]
     totals = stream_totals + 4
     if rows_width is None:  # cut to the longest record: a copy
         rows = rows[:, :int(totals.max())].contiguous()
@@ -478,18 +476,18 @@ def encode_superblocks_records(data, bpp: int, block_level: int):
         return encode_superblocks_index_plain(data, bpp, block_level,
                                               record_bound(nb, bpp))[:4]
     _check_args("encode_superblocks_records", data, bpp, block_level)
-    rows, totals, bsizes, fsizes, _ = _encode_rows(
-        data, bpp, block_level, record_bound(nb, bpp), 4, False, False)
+    rows, totals, bsizes, fsizes = _encode_rows(
+        data, bpp, block_level, record_bound(nb, bpp), 4, False, False)[:4]
     return rows, totals + 4, bsizes, fsizes
 
 
 def place_records(rows, totals, header: bytes, nb: int, bpp: int):
-    """The frame mode's second launch on its own (counted as K1): the
-    records of rows (rows[i, :totals[i] + 4], totals counting the streams
-    only) back to back behind header, zeros to the capacity len(header) +
-    n_sb * record_bound(nb, bpp), written by this launch (no K1 zeroed the
-    frame). A CPU tensor takes place_records_plain. Returns (frame, length
-    0-d int64)."""
+    """The records of rows (rows[i, :totals[i] + 4], totals counting the
+    streams only) back to back behind header, zeros to the capacity
+    len(header) + n_sb * record_bound(nb, bpp), in one launch of its own
+    (counted as K1): the frame of record rows made elsewhere (the gathered
+    mesh frame). A CPU tensor takes place_records_plain. Returns (frame,
+    length 0-d int64)."""
     if rows.device.type == "cpu":
         return place_records_plain(rows, totals, header, nb, bpp)
     if (rows.device.type != "cuda" or rows.dtype != torch.uint8
@@ -498,7 +496,23 @@ def place_records(rows, totals, header: bytes, nb: int, bpp: int):
             or tuple(totals.shape) != rows.shape[:1]):
         raise ValueError("place_records: need contiguous (n_sb, W) uint8 "
                          "rows and (n_sb,) int32 totals on one CUDA device")
-    return _place_records(rows, totals, header, nb, bpp)
+    if len(header) > 16:
+        raise ValueError("place_records: header longer than 16")
+    lib = _cuda.load("encode_blocks", _SIGNATURES)
+    dev = rows.device
+    n_sb = rows.shape[0]
+    frame = torch.empty(len(header) + n_sb * record_bound(nb, bpp),
+                        dtype=torch.uint8, device=dev)
+    length = torch.empty((), dtype=torch.int64, device=dev)
+    h = header.ljust(16, b"\0")
+    with trace.span("stn.place_records.launch", dev, superblocks=n_sb):
+        _cuda.check(lib.stenos_place_records(
+            rows.data_ptr(), rows.shape[1], totals.data_ptr(), n_sb,
+            frame.data_ptr(), frame.numel(), int.from_bytes(h[:8], "little"),
+            int.from_bytes(h[8:], "little"), len(header), length.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream), "place_records")
+    _count(False)
+    return frame, length
 
 
 def encode_superblocks_frame(data, bpp: int, block_level: int,
@@ -508,22 +522,17 @@ def encode_superblocks_frame(data, bpp: int, block_level: int,
     device-to-host copy. Returns (frame (capacity,) uint8, length 0-d int64
     tensor): the frame is frame[:length], zeros follow; capacity is
     len(header) + n_sb * record_bound(nb, bpp), and spare bytes more
-    (zeroed apart, for a record the caller adds). Counted as K1 launches:
-    K1 zeroes the capacity behind the header, place_records writes the
+    (zeroed apart, for a record the caller adds). One K1 launch (counted
+    as K1): it zeroes the capacity behind the header and writes the
     header, the records and the length over it."""
     if data.device.type == "cpu":
         return encode_superblocks_frame_plain(data, bpp, block_level, header,
                                               spare)
     _check_args("encode_superblocks_frame", data, bpp, block_level)
     nb = data.shape[1] // (256 * bpp)
-    frame = _frame_buffer(header, data.shape[0], nb, bpp, data.device, spare)
-    body = frame
-    if spare:
-        body = frame[:-spare]
-        frame[-spare:].zero_()
-    rows, totals = _encode_rows(data, bpp, block_level, record_bound(nb, bpp),
-                                4, False, False, body, len(header))[:2]
-    return frame, _place_records(rows, totals, header, nb, bpp, body)[1]
+    frame, _, length = _frame(data, bpp, block_level, header,
+                              record_bound(nb, bpp), spare)
+    return frame, length
 
 
 def encode_column_frame(data, bpp: int, block_level: int, header: bytes,
@@ -540,9 +549,9 @@ def encode_column_frame(data, bpp: int, block_level: int, header: bytes,
     bytes past them.
 
     On the card, with no device-to-host copy: K1 in frame mode, the short
-    superblock's whole blocks a last row of their own; encode_short (one
-    CTA, under the span stn.short_superblock) appends the partial segment
-    to that row; place_records places every record. A CPU tensor takes
+    superblock's whole blocks a last row of their own, placed as any other
+    record; encode_short (one CTA, under the span stn.short_superblock)
+    appends the partial segment in the frame. A CPU tensor takes
     encode_column_frame_plain."""
     global launches_short
     if data.device.type == "cpu":
@@ -556,25 +565,20 @@ def encode_column_frame(data, bpp: int, block_level: int, header: bytes,
                          f"CUDA column of no whole number of {sb}-byte "
                          f"superblocks for bpp {bpp}, block level "
                          f"{block_level}")
-    if data.data_ptr() % 16:  # K1 copies 16-byte words
-        data = data.clone()
     dev = data.device
     n_full, r = divmod(nbytes, sb)
     nbs, rbytes = divmod(r, 256 * bpp)
     nb = sb // (256 * bpp)
     slot = column_slot(nb if n_full else 0, r, bpp)
-    frame = torch.empty(len(header) + (n_full + 1) * slot, dtype=torch.uint8,
-                        device=dev)
-    rows, totals = _encode_rows(data, bpp, block_level, slot, 4, False,
-                                False, frame, len(header),
-                                column=(n_full + 1, nb, nbs))[:2]
+    frame, totals, length = _frame(data, bpp, block_level, header, slot,
+                                   column=(n_full + 1, nb, nbs))
     with trace.span("stn.short_superblock", dev, nbytes=rbytes,
                     superblocks=1):
         if rbytes:
             lib = _cuda.load("encode_blocks", _SIGNATURES)
             _cuda.check(lib.stenos_encode_short(
                 data.data_ptr() + nbytes - rbytes, rbytes, bpp,
-                rows[-1].data_ptr(), totals[-1:].data_ptr(),
+                frame.data_ptr(), length.data_ptr(), totals[-1:].data_ptr(),
                 torch.cuda.current_stream(dev).cuda_stream), "encode_short")
             launches_short += 1
-    return _place_records(rows, totals, header, nb, bpp, frame)
+    return frame, length

@@ -10,7 +10,7 @@ The public sharded paths. Every rank runs the same calls (SPMD):
       single-device frame at every level.
   compress_device_sharded           every rank passes its own (n_local, sb)
       tensor; each rank writes its contiguous frame segment on its device
-      (K1 and place_records) and one all_to_all_single leaves rank t
+      (one K1 launch) and one all_to_all_single leaves rank t
       holding frame bytes [t*S, (t+1)*S): the ragged pipeline.
   compress_device_sharded_gathered  the same input; the record rows are
       gathered to every rank, and one place_records on each builds the

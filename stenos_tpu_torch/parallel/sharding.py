@@ -197,8 +197,8 @@ def sharded_compress_step(mesh, local, bpp: int):
 def encode_segments_sharded(mesh, local, bpp: int, block_level: int = 2,
                             header: bytes = b""):
     """Phase 1 of the ragged pipeline: this rank's contiguous frame
-    segment, its records back to back (K1, then place_records: two
-    launches), rank 0's behind `header` (the frame header; every other
+    segment, its records back to back (one K1 launch), rank 0's behind
+    `header` (the frame header; every other
     rank's header is empty). The only collective is an all-gather of the
     nd segment lengths (with each rank's share, checked equal).
 

@@ -132,7 +132,8 @@ _C_TYPES = {"void*": ctypes.c_void_p, "long long": ctypes.c_longlong,
 
 
 @pytest.mark.parametrize("fn", ["stenos_encode_superblocks",
-                                "stenos_place_records"])
+                                "stenos_place_records",
+                                "stenos_encode_short"])
 def test_signatures_match_the_source(fn):
     """The ctypes argtypes of each entry have the count and order of the
     parameters its C definition declares (a mismatch would pass arguments
