@@ -86,6 +86,7 @@ from stenos_tpu_torch import parallel as par
 from stenos_tpu_torch import engine as eng
 from stenos_tpu_torch import frame as fr
 from stenos_tpu_torch import native
+from stenos_tpu_torch.host import staging
 from stenos_tpu_torch.host import zstd as zstd_host
 from stenos_tpu_torch.device_container import record_blocks
 from stenos_tpu_torch.engine import (CHUNK_BYTES, compress_frame_device,
@@ -1058,14 +1059,12 @@ def in_turns_s(fns, rounds=1, events=False):
 def mesh_decode_args(frame, bpp, dev):
     """The args of the mesh decode's K2 launch at world 1: the native
     parse of every superblock of frame (all METHOD_BLOCK), on dev."""
-    from stenos_tpu_torch.entropy.device_decode import Staging
-
     f = np.frombuffer(frame, np.uint8)
     found = eng._block_records(f, bpp)
     check(found is not None, "the mesh decode's frame is not all "
           "METHOD_BLOCK superblocks")
     sb, items = found
-    prep = eng.prepare_blocks(f, items, bpp, sb, Staging(dev))
+    prep = eng.prepare_blocks(f, items, bpp, sb, staging.Staging(dev))
     check(prep["n_ok"] == len(items), "native parse of the mesh decode")
     return [a.to(dev) for a in prep["args"]], sb // (256 * bpp)
 
@@ -1168,7 +1167,7 @@ def phase_sharding(dev, raw, frames, card):
             "gather_ms": cuda_ms(lambda: par.sharding.all_gather(
                 words, mesh.get_group()), 3),
             "d2h_ms": cuda_ms(lambda: pinned.copy_(words.view(-1)), 3),
-            "to_output_ms": timed_s(lambda: fr._put(
+            "to_output_ms": timed_s(lambda: staging.put(
                 np.empty(words.numel(), np.uint8), [0, 0, words.numel()],
                 pinned.numpy()))[1] * 1e3}
         del args, words, pinned
@@ -2494,7 +2493,7 @@ def phase_zstd(dev, old=None):
         # runs it (up to HOST_THREADS, one a 8 anchor scans): the median
         # of 3 each, ms a superblock
         threads = {}
-        for n in (1, device_decode.HOST_THREADS):
+        for n in (1, staging.HOST_THREADS):
             reps = []
             for _ in range(3):
                 t6 = time.perf_counter()

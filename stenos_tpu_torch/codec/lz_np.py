@@ -18,14 +18,6 @@ import numpy as np
 _EMPTY = 0xFFFF  # sentinel position: never satisfies `pos_stored < pos`
 
 
-def _hash4(v: int) -> int:
-    return ((v * 2654435761) & 0xFFFFFFFF) & 255
-
-
-def _hash8(v: int) -> int:
-    return ((v * 14313749767032793493) & 0xFFFFFFFFFFFFFFFF) >> 56
-
-
 def fresh_table():
     """Per-superblock LZ hash table (persisted across that superblock's
     block loop by the caller, matching block_compress.h:1152-1223)."""

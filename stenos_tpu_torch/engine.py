@@ -19,8 +19,10 @@ engine supplies the block streams and decodes them:
           One superblock alone (a container chunk, decompress_superblock):
           decode_block_stream, the native parse_rows, then one launch of
           decode_rows. decompress_frame_batched decodes a frame of
-          METHOD_BLOCK superblocks only, 64 MiB a launch, into a numpy
-          array or (keep_device=True) into tensors left on the device.
+          METHOD_BLOCK superblocks only, 64 MiB a launch, through the same
+          batcher, into a numpy array or (keep_device=True) into tensors
+          left on the device. The threads, the pinned buffers and the copy
+          into the output are host/staging.py's.
 
 and two device-resident paths with no host byte traffic:
 
@@ -40,7 +42,6 @@ falls back to a slower tier. An engine may serve several threads (compress
 with threads=, a shared container): its device work runs under its lock.
 """
 
-import os
 import sys
 import threading
 
@@ -55,6 +56,7 @@ from .ops.decode_kernel import decode_rows, decode_rows_derive
 from .ops.encode_kernel import (encode_column_frame, encode_superblocks,
                                 encode_superblocks_frame,
                                 encode_superblocks_index, record_bound)
+from .host import staging
 from .utils import trace
 
 CHUNK_BYTES = 64 * 1024 * 1024  # superblocks per device call, in bytes
@@ -243,28 +245,35 @@ class TorchEngine:
                               bpp, nb).view(-1).cpu().numpy()
         return np.concatenate([out, tail]) if len(tail) else out
 
-    def decode_blocks(self, prep, bpp: int, sb: int, host):
-        """Decode a prepared batch (prepare_blocks) with one launch of the
-        decode kernel: on a CUDA device the parse output goes up by
-        non_blocking copies from its pinned buffers and the decoded bytes
-        come back into host's pinned buffer "decoded", all on the current
-        stream; the host waits for the stream once, at the end. Returns
-        the n_ok * sb decoded bytes as a numpy array (a view of host's
-        buffer until the next batch)."""
-        nb = sb // (256 * bpp)
-        args, n = prep["args"], prep["n_ok"]
-        if self.device.type != "cuda":
-            with trace.span("stn.k2", nbytes=n * sb, superblocks=n):
-                return decode_rows(*args, bpp, nb).reshape(-1).numpy()
-        with trace.span("stn.h2d", self.device) as h2d:
-            dev = [a.to(self.device, non_blocking=True) for a in args]
-        with trace.span("stn.k2", self.device, nbytes=n * sb,
-                        superblocks=n) as k2:
-            dec = decode_rows(*dev, bpp, nb)
-        out = host.get("decoded", dec.numel())
-        with trace.span("stn.d2h", self.device, nbytes=n * sb) as d2h:
-            out.copy_(dec.view(-1), non_blocking=True)
-        torch.cuda.current_stream(self.device).synchronize()
+    def decode_blocks(self, prep, bpp: int, sb: int, bufs, host=None):
+        """Decode a prepared batch (prepare_blocks, into the Staging bufs)
+        with one launch of the decode kernel, under the engine's lock. On a
+        CUDA device the parse output goes up by non_blocking copies from
+        bufs' pinned buffers, on the current stream, and bufs.uploaded
+        becomes the event behind them. host, a Staging, is the host sink:
+        the decoded bytes come back into its pinned buffer "decoded", the
+        host waits for the stream once, at the end, and the n_ok * sb bytes
+        return as a numpy array (a view of host's buffer until the next
+        batch). host=None is the device sink: the (n_ok * sb,) uint8
+        tensor on the device returns, and nothing waits."""
+        dev, nb, n = self.device, sb // (256 * bpp), prep["n_ok"]
+        with self.lock:
+            with trace.span("stn.h2d", dev) as h2d:
+                args = [a.to(dev, non_blocking=True) for a in prep["args"]]
+            if dev.type == "cuda":
+                bufs.uploaded = torch.cuda.Event()
+                bufs.uploaded.record()
+            with trace.span("stn.k2", dev, nbytes=n * sb,
+                            superblocks=n) as k2:
+                dec = decode_rows(*args, bpp, nb).view(-1)
+            if host is None:
+                return dec
+            if dev.type != "cuda":
+                return dec.numpy()
+            out = host.get("decoded", dec.numel())
+            with trace.span("stn.d2h", dev, nbytes=n * sb) as d2h:
+                out.copy_(dec, non_blocking=True)
+            torch.cuda.current_stream(dev).synchronize()
         if timing is not None:
             prep["times"].update(h2d_ms=h2d.device_ms(),
                                  k2_ms=k2.device_ms(),
@@ -290,14 +299,12 @@ def resolve(engine, device):
 
 # per-batch times of the block decode (chip_smoke.py reads them), appended
 # to when this is a list: the host pass on its thread (unpack_ms, parse_ms),
-# how long the decode waited for it (wait_ms), on a CUDA device h2d_ms,
-# k2_ms and d2h_ms by CUDA events, how long it waited for the batch
-# before's copy into the output (out_wait_ms) and that copy (out_ms), each
-# the time of a span of utils/trace.py; set, it also turns that recorder on
+# how long the decode waited for it (wait_ms), and, for a batch copied to
+# the host, on a CUDA device h2d_ms, k2_ms and d2h_ms by CUDA events, how
+# long it waited for the batch before's copy into the output (out_wait_ms)
+# and that copy (out_ms), each the time of a span of utils/trace.py; set,
+# it also turns that recorder on
 timing = None
-
-# threads of the host pass (libzstd, the parse): native, the GIL released
-HOST_THREADS = min(8, os.cpu_count() or 1)
 
 
 def _up16(n: int) -> int:
@@ -306,15 +313,15 @@ def _up16(n: int) -> int:
 
 def prepare_blocks(frame: np.ndarray, items, bpp: int, sb: int, bufs):
     """Host pass of one batch of full-size METHOD_BLOCK / METHOD_BLOCK_ZSTD
-    superblocks of a frame (uint8 array), in native code on HOST_THREADS
-    threads: host libzstd unpacks each residual into its declared content
-    size (native.zstd_unpack), then the parser (native.parse_rows_ptrs)
-    builds the row index of every block stream, where it lies, into bufs'
-    buffers (pinned on a CUDA device). items: (code, pos, csize, written),
-    the payload at frame[pos : pos + csize]. Returns a dict: n_ok, the
-    superblocks before the first one that does not unpack or parse (all of
-    them when every one does), the kernel's args (vbufs, plane_off, rowtab)
-    over those, and times."""
+    superblocks of a frame (uint8 array), in native code on
+    staging.HOST_THREADS threads: host libzstd unpacks each residual into
+    its declared content size (native.zstd_unpack), then the parser
+    (native.parse_rows_ptrs) builds the row index of every block stream,
+    where it lies, into bufs' buffers (pinned on a CUDA device). items:
+    (code, pos, csize, written), the payload at frame[pos : pos + csize].
+    Returns a dict: n_ok, the superblocks before the first one that does
+    not unpack or parse (all of them when every one does), the kernel's
+    args (vbufs, plane_off, rowtab) over those, and times."""
     from .constants import METHOD_BLOCK
     from .native import load
 
@@ -328,7 +335,8 @@ def prepare_blocks(frame: np.ndarray, items, bpp: int, sb: int, bufs):
         n_ok = len(items)
         if len(zst):
             res, starts, n_z = native.zstd_unpack(
-                srcs[zst], lens[zst], MAX_BLOCK_BYTES, HOST_THREADS)
+                srcs[zst], lens[zst], MAX_BLOCK_BYTES,
+                staging.HOST_THREADS)
             srcs[zst[:n_z]] = res.ctypes.data + starts[:n_z]
             lens[zst[:n_z]] = np.diff(starts[: n_z + 1])
             if n_z < len(zst):
@@ -345,7 +353,7 @@ def prepare_blocks(frame: np.ndarray, items, bpp: int, sb: int, bufs):
                 m, 16, P)
             i, err = native.parse_rows_ptrs(
                 srcs, lens, bpp, sb, rb, vb.numpy(), po.numpy(), rt.numpy(),
-                np.empty(m, np.int64), HOST_THREADS)
+                np.empty(m, np.int64), staging.HOST_THREADS)
             wide = _up16(int(lens.max()) + sb + 16)
             if err == ERROR_INVALID_INPUT and rb < wide:
                 rb = wide  # LZ inlining grew a stream past its row: once wider
@@ -404,16 +412,15 @@ def decompress_frame_batched(frame, bpp: int, engine=None,
 
     keep_device=True returns a list of 1-D uint8 tensors on the engine's
     device, one a batch of CHUNK_BYTES, whose bytes in order are the
-    decoded array: nothing is copied back to the host. Each batch is one
-    launch of the decode kernel (decode_rows), and the host pass of a batch
-    (prepare_blocks) runs while the batch before it decodes. Two sets of
-    parse buffers (pinned on a CUDA device) take turns, and a set is
-    refilled only after the event recorded behind its upload.
+    decoded array: nothing is copied back to the host. The batches go
+    through frame.decompress's batcher (frame._BlockChunk) with its device
+    sink: one launch of the decode kernel (decode_rows) each, the host pass
+    of a batch (prepare_blocks) on a thread while the batch before it
+    decodes.
 
     engine: a TorchEngine; None makes one on `device` ("cuda" unless given,
     raising when CUDA is absent)."""
-    from .entropy.device_decode import Staging
-    from .frame import StenosError, decompress
+    from .frame import StenosError, _BlockChunk, decompress
 
     if engine is None:
         engine = TorchEngine("cuda" if device is None else device)
@@ -423,40 +430,19 @@ def decompress_frame_batched(frame, bpp: int, engine=None,
     found = _block_records(frame, bpp)
     if found is None:
         return None
-    if not keep_device:
-        try:
+    try:
+        if not keep_device:
             return decompress(frame, bpp, engine=engine)
-        except StenosError:
-            return None
-    sb, items = found
-    dev = engine.device
-    nb = sb // (256 * bpp)
-    per = max(1, CHUNK_BYTES // sb)
-    bufs = [Staging(dev), Staging(dev)]
-    uploaded = [None, None]  # the event behind each set's last upload
-    outs = []
-    with trace.span("stn.decompress_frame_batched", nbytes=len(items) * sb,
-                    superblocks=len(items)):
-        for k, i in enumerate(range(0, len(items), per)):
-            batch = items[i : i + per]
-            if uploaded[k % 2] is not None:
-                with trace.span("stn.upload_wait"):
-                    uploaded[k % 2].synchronize()
-            with trace.span("stn.host_pass", superblocks=len(batch)):
-                prep = prepare_blocks(frame, batch, bpp, sb, bufs[k % 2])
-            if prep["n_ok"] < len(batch):
-                return None
-            with engine.lock:
-                with trace.span("stn.h2d", dev):
-                    args = [a.to(dev, non_blocking=True)
-                            for a in prep["args"]]
-                if dev.type == "cuda":
-                    uploaded[k % 2] = torch.cuda.Event()
-                    uploaded[k % 2].record()
-                with trace.span("stn.k2", dev, nbytes=len(batch) * sb,
-                                superblocks=len(batch)):
-                    outs.append(decode_rows(*args, bpp, nb).view(-1))
-    return outs
+        sb, items = found
+        blocks = _BlockChunk(engine, bpp, sb, frame, None)
+        with trace.span("stn.decompress_frame_batched",
+                        nbytes=len(items) * sb, superblocks=len(items)):
+            for item in items:
+                blocks.add(item, sb)
+            blocks.flush()
+        return blocks.outs
+    except StenosError:
+        return None
 
 
 def roundtrip_device(batch, bpp: int, block_level: int = 2):

@@ -17,9 +17,10 @@ decode_payloads_device decodes a batch of payloads (the frame layer gathers
    otherwise (raw, RLE, native huf_lits); the sequences section gets its
    FSE tables (stn_zstd_dtables, the Repeat_Mode tables chained through
    the frame's blocks in order). The anchor scans are its costly part: it
-   runs on one thread, and on up to HOST_THREADS when the batch has
-   scans to run (one thread for each 8). The frame layer runs it on a
-   thread while the batch before decodes; decode_prepared does steps 2-4.
+   runs on one thread, and on up to host/staging.py's HOST_THREADS when
+   the batch has scans to run (one thread for each 8). The frame layer
+   runs it on a thread while the batch before decodes; decode_prepared
+   does steps 2-4.
 2. One host-to-device copy of the packed inputs; K5 over every job's 4
    streams, and K7 (seqdec_kernel.py) with one lane a payload: the raw
    sequences, the repeat offsets resolved on the card (chained across the
@@ -42,7 +43,6 @@ kernel fault never turns into host work.
 """
 
 import contextlib
-import os
 import sys
 import warnings
 
@@ -52,6 +52,7 @@ import torch
 from .. import native
 from ..constants import ERROR_INVALID_INPUT
 from ..frame import StenosError
+from ..host import staging as host_staging
 from ..utils import trace
 from .huff_decode_kernel import decode_streams
 from .huff_kernel import STREAM, WOUT_WORDS
@@ -71,9 +72,6 @@ host_ladder = 0
 timing = None
 _HOST_STEPS = ("host_pass", "frame_out")
 _unsettled = []  # (step, span) of device steps not yet added to timing
-
-# the most threads of the native host pass
-HOST_THREADS = min(8, os.cpu_count() or 1)
 _LADDER, _CORRUPT = 1, 2  # its payload statuses
 
 
@@ -103,26 +101,6 @@ def settle():
 
 def _corrupt():
     raise StenosError(ERROR_INVALID_INPUT)
-
-
-class Staging:
-    """The host staging buffers of one caller (a decompress, or one batch):
-    pinned for a CUDA device, reused from chunk to chunk, grown on demand.
-    Callers do not share one: a buffer is rewritten by the next chunk."""
-
-    def __init__(self, device):
-        self.device = torch.device(device)
-        self.bufs = {}
-
-    def get(self, name, nbytes):
-        """A (nbytes,) uint8 host tensor, the one kept under name."""
-        if self.device.type != "cuda":
-            return torch.empty(nbytes, dtype=torch.uint8)
-        b = self.bufs.get(name)
-        if b is None or b.numel() < nbytes:
-            b = self.bufs[name] = torch.empty(nbytes, dtype=torch.uint8,
-                                              pin_memory=True)
-        return b[:nbytes]
 
 
 def _upload(arrays, staging, name):
@@ -221,7 +199,8 @@ def prepare(buf, offs, lens, dsizes):
     decode_prepared. Native and without the GIL, so a caller may run it on
     a thread while an earlier batch decodes."""
     return native.load().zstd_prep_batch(buf, offs, lens, dsizes,
-                                         HOST_THREADS, 4 * WOUT_WORDS)
+                                         host_staging.HOST_THREADS,
+                                         4 * WOUT_WORDS)
 
 
 def decode_prepared(buf, dsizes, prepared, out, staging=None):
@@ -244,7 +223,7 @@ def decode_prepared(buf, dsizes, prepared, out, staging=None):
                               RuntimeWarning, stacklevel=3)
             host_ladder += 1
     if len(prep[0]):
-        _decode(buf, dsizes, prep, out, staging or Staging(out.device))
+        _decode(buf, dsizes, prep, out, staging or host_staging.Staging(out.device))
     return [st == 0 for st in status.tolist()]
 
 

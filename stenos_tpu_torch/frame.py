@@ -43,6 +43,7 @@ from .constants import (
     compress_bound,
     super_block_size,
 )
+from .host import staging
 from .host import zstd as zstd_host
 from .host.lz4dry import lz4_guess_ratio, lz4_guess_size
 from .ops.delta import delta_inv_np, delta_np
@@ -772,17 +773,13 @@ def _untranspose(code, r, bpp, dsize):
 
 _ZSTD_METHODS = (METHOD_ZSTD, METHOD_TRANSPOSED_ZSTD,
                  METHOD_TRANSPOSED_DELTA_ZSTD)
-_COPY_THREADS = min(8, os.cpu_count() or 1)
-_copy_pool = None
-_prep_pool = None
-_out_pool = None
 
 
 class _Batcher:
     """Superblocks of a frame gathered up to CHUNK_BYTES of output a batch
-    for the device. A batch's host pass (_prepare, on a thread) runs while
-    the batch before it decodes (_finish): at most two batches are in
-    flight, and they finish in frame order."""
+    for the device. A batch's host pass (_prepare, on the host-pass thread
+    of host/staging.py) runs while the batch before it decodes (_finish): at
+    most two batches are in flight, and they finish in frame order."""
 
     def __init__(self):
         from .engine import CHUNK_BYTES
@@ -801,11 +798,9 @@ class _Batcher:
     def _start(self):
         """Start the gathered batch's host pass on a thread (its span a
         child of this thread's), then finish the batch before it."""
-        global _prep_pool
         items, self.items, self.nbytes = self.items, [], 0
-        if _prep_pool is None:
-            _prep_pool = ThreadPoolExecutor(1)
-        fut = _prep_pool.submit(self._host_pass, items, trace.current())
+        fut = staging.host_pass.submit(self._host_pass, items,
+                                       trace.current())
         prev, self.pending = self.pending, (items, fut)
         if prev:
             try:
@@ -836,12 +831,10 @@ class _ZstdChunk(_Batcher):
     comes back in one device-to-host copy and is written into out."""
 
     def __init__(self, device, bpp, frame, out):
-        from .entropy.device_decode import Staging
-
         super().__init__()
         self.bpp, self.frame, self.out = bpp, frame, out
         self.device = torch.device(device)
-        self.staging = Staging(self.device)
+        self.stage = staging.Staging(self.device)
 
     def _prepare(self, items):
         from .entropy.device_decode import prepare
@@ -857,7 +850,7 @@ class _ZstdChunk(_Batcher):
         """dev_out's bytes on the host (through a pinned buffer on CUDA)."""
         if dev_out.device.type != "cuda":
             return dev_out.numpy()
-        h = self.staging.get("output", dev_out.numel())
+        h = self.stage.get("output", dev_out.numel())
         h.copy_(dev_out)
         return h.numpy()
 
@@ -868,71 +861,56 @@ class _ZstdChunk(_Batcher):
         with step("host_pass", dev):  # the part not hidden behind the last
             buf, dsizes, prepared = fut.result()
         dev_out = torch.empty(sum(dsizes), dtype=torch.uint8, device=dev)
-        ok = decode_prepared(buf, dsizes, prepared, dev_out, self.staging)
+        ok = decode_prepared(buf, dsizes, prepared, dev_out, self.stage)
         with step("d2h_output", dev):
             host = self._host_buffer(dev_out) if any(ok) else None
         settle()
         with step("frame_out", dev):
-            o = 0
-            run = None  # [out, host, bytes]: device-decoded METHOD_ZSTD
-            for (code, pos, csize, dsize, written), good in zip(items, ok):
+            offs = np.cumsum([0] + dsizes[:-1]).tolist()
+            # device-decoded METHOD_ZSTD: copied out by runs
+            for run in staging.runs([
+                    (w, o, d) for (code, _, _, d, w), o, good
+                    in zip(items, offs, ok) if good and code == METHOD_ZSTD]):
+                staging.put(self.out, run, host)
+            for (code, pos, csize, dsize, written), o, good in zip(
+                    items, offs, ok):
                 if good and code == METHOD_ZSTD:
-                    if run and run[0] + run[2] == written:
-                        run[2] += dsize  # (and so run[1] + run[2] == o)
-                    else:
-                        _put(self.out, run, host)
-                        run = [written, o, dsize]
-                    o += dsize
                     continue
                 r = (host[o : o + dsize] if good else _zstd_decompress(
                     self.frame[pos : pos + csize], dsize))
-                o += dsize
                 if code != METHOD_ZSTD:
                     r = _untranspose(code, r, self.bpp, dsize)
                 if len(r) != dsize:
                     raise StenosError(ERROR_INVALID_INPUT)
                 self.out[written : written + dsize] = r
-            _put(self.out, run, host)
-
-
-def _put(out, run, host):
-    """out[w : w + n] = host[o : o + n] for run [w, o, n], in slices on
-    threads: the first writes of a fresh output (its page faults) are most
-    of the copy's time."""
-    global _copy_pool
-    if run is None:
-        return
-    w, o, n = run
-    if _copy_pool is None:
-        _copy_pool = ThreadPoolExecutor(_COPY_THREADS)
-    piece = -(-n // _COPY_THREADS)
-    list(_copy_pool.map(
-        lambda a: np.copyto(out[w + a : w + min(a + piece, n)],
-                            host[o + a : o + min(a + piece, n)]),
-        range(0, n, piece)))
 
 
 class _BlockChunk(_Batcher):
     """The full-size METHOD_BLOCK and METHOD_BLOCK_ZSTD superblocks of a
     frame, batched for the decode kernel. A batch's host pass
     (engine.prepare_blocks: host libzstd on the residuals, the native row
-    parse) fills one of two sets of host buffers (pinned on a CUDA device);
-    the batch copies to the device, decodes with one kernel launch and
-    comes back (TorchEngine.decode_blocks) into one of two output buffers,
-    from which threads copy it into out while the next batch decodes. A
-    superblock that does not unpack or parse takes the host path, as
-    decompress_superblock: its error, or its bytes, after the batch's
-    superblocks before it are written."""
+    parse) fills one of two sets of host buffers (pinned on a CUDA device),
+    once the upload from that set has run; the batch goes to the device and
+    decodes with one kernel launch (TorchEngine.decode_blocks). Then a sink
+    takes it. out, a uint8 array, is the host sink: the batch comes back
+    into one of two output buffers, from which threads copy it into out
+    while the next batch decodes, and a superblock that does not unpack or
+    parse takes the host path, as decompress_superblock: its error, or its
+    bytes, after the batch's superblocks before it are written. out=None is
+    the device sink: each batch's decoded tensor stays on the device, in
+    outs, and a superblock that does not unpack or parse raises
+    StenosError."""
 
     def __init__(self, engine, bpp, sb, frame, out):
-        from .entropy.device_decode import Staging
-
         super().__init__()
         self.engine, self.bpp, self.sb = engine, bpp, sb
         self.frame = np.ascontiguousarray(frame)
         self.out = out
-        self.bufs = [Staging(engine.device), Staging(engine.device)]
-        self.hosts = [Staging(engine.device), Staging(engine.device)]
+        self.outs = []  # the device sink's tensors, one a batch
+        self.bufs = [staging.Staging(engine.device),
+                     staging.Staging(engine.device)]
+        self.hosts = [staging.Staging(engine.device),
+                      staging.Staging(engine.device)]
         self.copy = None  # the copy into out that runs
 
     def _prepare(self, items):
@@ -940,6 +918,9 @@ class _BlockChunk(_Batcher):
 
         bufs = self.bufs[0]
         self.bufs.reverse()
+        if bufs.uploaded is not None:
+            with trace.span("stn.upload_wait"):
+                bufs.uploaded.synchronize()
         return bufs, prepare_blocks(self.frame, items, self.bpp, self.sb,
                                     bufs)
 
@@ -964,38 +945,22 @@ class _BlockChunk(_Batcher):
             copy.result()
 
     def _decode(self, items, bufs, prep):
-        global _out_pool
         from . import engine
 
         n, sb = prep["n_ok"], self.sb
         if n:
-            host = self.engine.decode_blocks(prep, self.bpp, sb,
-                                             self.hosts[0])
-            self.hosts.reverse()
-            runs = []
-            for i, (_, _, _, w) in enumerate(items[:n]):
-                if runs and runs[-1][0] + runs[-1][2] == w:
-                    runs[-1][2] += sb
-                else:
-                    runs.append([w, i * sb, sb])
-            with trace.span("stn.out_wait") as wait:
-                self._copied()  # the batch before: its buffer is the next
-            times = prep["times"]
-            times["out_wait_ms"] = wait.host_ms
-
-            def copy(parent):
-                with trace.span("stn.out_copy", parent=parent,
-                                nbytes=n * sb, superblocks=n) as c:
-                    for run in runs:
-                        _put(self.out, run, host)
-                times["out_ms"] = c.host_ms
-
-            if _out_pool is None:
-                _out_pool = ThreadPoolExecutor(1)
-            self.copy = _out_pool.submit(copy, trace.current())
+            host = None if self.out is None else self.hosts[0]
+            dec = self.engine.decode_blocks(prep, self.bpp, sb, bufs, host)
+            if self.out is None:
+                self.outs.append(dec)
+            else:
+                self._copy_out(items[:n], dec, prep["times"])
             if engine.timing is not None:
-                engine.timing.append({"superblocks": n, "times": times})
+                engine.timing.append({"superblocks": n,
+                                      "times": prep["times"]})
         if n < len(items):
+            if self.out is None:
+                raise StenosError(ERROR_INVALID_INPUT)
             code, pos, csize, w = items[n]
             r = decompress_superblock(code, self.frame[pos : pos + csize],
                                       self.bpp, sb)
@@ -1004,10 +969,28 @@ class _BlockChunk(_Batcher):
             self.out[w : w + sb] = r
             rest = items[n + 1 :]
             if rest:
-                from .engine import prepare_blocks
-
-                self._decode(rest, bufs, prepare_blocks(
+                self._decode(rest, bufs, engine.prepare_blocks(
                     self.frame, rest, self.bpp, sb, bufs))
+
+    def _copy_out(self, items, host, times):
+        """The host sink: host's batch into out on the output-copy thread,
+        once the batch before's copy (from the other buffer) has ended."""
+        self.hosts.reverse()
+        runs = staging.runs([(w, i * self.sb, self.sb)
+                             for i, (_, _, _, w) in enumerate(items)])
+        with trace.span("stn.out_wait") as wait:
+            self._copied()  # the batch before: its buffer is the next
+        times["out_wait_ms"] = wait.host_ms
+        n = len(items)
+
+        def copy(parent):
+            with trace.span("stn.out_copy", parent=parent,
+                            nbytes=n * self.sb, superblocks=n) as c:
+                for run in runs:
+                    staging.put(self.out, run, host)
+            times["out_ms"] = c.host_ms
+
+        self.copy = staging.out_copy.submit(copy, trace.current())
 
 
 def _zstd_payload(payload, dsize, engine):

@@ -1,10 +1,10 @@
 // stenos-tpu native host runtime.
 //
 // Clean-room implementations (from SPEC.md, written for this project) of the
-// host-side hot paths that surround the TPU compute pipeline:
+// host-side hot paths that surround the card's compute pipeline:
 //   - LZ4-dry size estimator (method selection; SPEC.md §5)
-//   - block-codec stream decoder + parse-index builder (SPEC.md §3)
-//   - byte shuffle / 4-stream delta filters (SPEC.md §2)
+//   - block-codec stream decoder + row parse for the decode kernel (SPEC.md §3)
+//   - the zstd entropy stage's host passes (tables, anchors, literals)
 //
 // Exposed as a plain C ABI consumed via ctypes (no pybind11 in this image).
 // All calls are GIL-free (ctypes releases the GIL), so the Python runtime can
@@ -135,57 +135,6 @@ last_literals: {
     count += (size_t)lastRun;
 }
     return count;
-}
-
-// ------------------------------------------------------------- filters
-
-EXPORT void stn_shuffle(size_t bpp, size_t n, const uint8_t* src, uint8_t* dst) {
-    const size_t ne = n / bpp;
-    for (size_t p = 0; p < bpp; ++p)
-        for (size_t e = 0; e < ne; ++e) dst[p * ne + e] = src[e * bpp + p];
-    std::memcpy(dst + ne * bpp, src + ne * bpp, n - ne * bpp);
-}
-
-EXPORT void stn_unshuffle(size_t bpp, size_t n, const uint8_t* src, uint8_t* dst) {
-    const size_t ne = n / bpp;
-    for (size_t p = 0; p < bpp; ++p)
-        for (size_t e = 0; e < ne; ++e) dst[e * bpp + p] = src[p * ne + e];
-    std::memcpy(dst + ne * bpp, src + ne * bpp, n - ne * bpp);
-}
-
-EXPORT void stn_delta(const uint8_t* src, uint8_t* dst, size_t n) {
-    if (!n) return;
-    if (n <= 2048) {
-        dst[0] = src[0];
-        for (size_t i = 1; i < n; ++i) dst[i] = (uint8_t)(src[i] - src[i - 1]);
-        return;
-    }
-    const size_t q = n / 4;
-    for (int k = 0; k < 4; ++k) {
-        const uint8_t* s = src + (size_t)k * q;
-        uint8_t* o = dst + (size_t)k * q;
-        o[0] = s[0];
-        for (size_t i = 1; i < q; ++i) o[i] = (uint8_t)(s[i] - s[i - 1]);
-    }
-    for (size_t i = 4 * q; i < n; ++i) dst[i] = (uint8_t)(src[i] - src[i - 1]);
-}
-
-EXPORT void stn_delta_inv(const uint8_t* src, uint8_t* dst, size_t n) {
-    if (!n) return;
-    if (n <= 2048) {
-        uint8_t acc = 0;
-        for (size_t i = 0; i < n; ++i) dst[i] = acc = (uint8_t)(acc + src[i]);
-        return;
-    }
-    const size_t q = n / 4;
-    for (int k = 0; k < 4; ++k) {
-        const uint8_t* s = src + (size_t)k * q;
-        uint8_t* o = dst + (size_t)k * q;
-        uint8_t acc = 0;
-        for (size_t i = 0; i < q; ++i) o[i] = acc = (uint8_t)(acc + s[i]);
-    }
-    uint8_t acc = n > 4 * q ? dst[4 * q - 1] : 0;
-    for (size_t i = 4 * q; i < n; ++i) dst[i] = acc = (uint8_t)(acc + src[i]);
 }
 
 // --------------------------------------------------- block stream decode
@@ -442,183 +391,6 @@ EXPORT ptrdiff_t stn_block_decode(const uint8_t* src, size_t size, size_t bpp,
             pos += tail;
         }
     }
-    return pos;
-}
-
-// ----------------------------------------------------- parse index (decode)
-//
-// Walk a block-codec stream touching only headers/masks and emit a per-plane
-// index for the fully-parallel device decoder (engine_jax.decode):
-//   plane_off  : offset of the plane's data (hdr8 for NORMAL*, raw bytes for
-//                RAW; for LZ/COPY blocks, offset into the patch area appended
-//                after the stream, holding host-decoded SHUFFLED planes)
-//   plane_kind : 0=NORMAL 1=NORMAL_RLE 2=ALL_SAME 3=RAW-256-at-off
-//   plane_val  : fill byte for ALL_SAME
-// LZ/COPY blocks and the partial tail are decoded on the host into
-// `patch` (they are rare / tiny); patch bytes are addressed as
-// offset >= size. Returns consumed bytes, or a negative error.
-//
-// tail_info[0] = patch offset of decoded partial tail (or -1), tail_info[1] =
-// tail length. patch_len[0] = bytes appended to patch.
-
-namespace {
-
-// Size-only walk of one NORMAL/NORMAL_RLE plane; returns consumed or -1.
-ptrdiff_t skip_plane(const uint8_t* src, ptrdiff_t avail, bool rle_mins) {
-    if (avail < 8) return -1;
-    static const int kSize[16] = {0, 2, 4, 6, 8, 10, 12, -1,
-                                  0, 2, 4, 6, 8, 10, 12, 16};
-    ptrdiff_t pos = 8;
-    int n_min = 0;
-    uint8_t headers[16];
-    for (int i = 0; i < 8; ++i) {
-        headers[2 * i] = src[i] & 15;
-        headers[2 * i + 1] = src[i] >> 4;
-    }
-    if (rle_mins) {
-        if (pos + 2 > avail) return -1;
-        const uint32_t mask = (uint32_t)src[pos] | ((uint32_t)src[pos + 1] << 8);
-        pos += 2 + __builtin_popcount(~mask & 0xFFFFu);
-    } else {
-        for (int i = 0; i < 16; ++i) {
-            const uint8_t h = headers[i];
-            n_min += (h != 6 && h != 7 && h != 15);
-        }
-        pos += n_min;
-    }
-    for (int r = 0; r < 16; ++r) {
-        const uint8_t h = headers[r];
-        if (h == 6 || h == 7) {
-            if (pos + 2 > avail) return -1;
-            const uint32_t mask =
-                (uint32_t)src[pos] | ((uint32_t)src[pos + 1] << 8);
-            pos += 2 + __builtin_popcount(~mask & 0xFFFFu);
-        } else {
-            pos += kSize[h];
-        }
-        if (pos > avail) return -1;
-    }
-    return pos;
-}
-
-}  // namespace
-
-EXPORT ptrdiff_t stn_parse_index(const uint8_t* src, size_t size, size_t bpp,
-                                 size_t nbytes, int32_t* plane_off,
-                                 uint8_t* plane_kind, uint8_t* plane_val,
-                                 uint8_t* patch, size_t patch_cap,
-                                 int64_t* patch_len, int64_t* tail_info,
-                                 uint8_t* scratch /* >= 512*bpp */) {
-    const ptrdiff_t n = (ptrdiff_t)size;
-    const size_t hdr_w = (bpp + 1) / 2;
-    const size_t block_size = 256 * bpp;
-    const size_t nb = nbytes == block_size ? 1 : nbytes / block_size;
-    ptrdiff_t pos = 0;
-    size_t patch_w = 0;
-    tail_info[0] = -1;
-    tail_info[1] = 0;
-
-    for (size_t b = 0; b < nb; ++b) {
-        if (pos >= n) return ERR_SRC;
-        const uint8_t marker = src[pos];
-        int32_t* po = plane_off + b * bpp;
-        uint8_t* pk = plane_kind + b * bpp;
-        uint8_t* pv = plane_val + b * bpp;
-        if (marker == 252 || marker == 253) {  // COPY / LZ: host-decode+shuffle
-            ++pos;
-            uint8_t* dec = scratch;  // interleaved block
-            if (marker == 252) {
-                if (pos + (ptrdiff_t)block_size > n) return ERR_SRC;
-                std::memcpy(dec, src + pos, block_size);
-                pos += block_size;
-            } else {
-                ptrdiff_t c = lz_block(src + pos, n - pos, bpp, dec);
-                if (c < 0) return ERR_INPUT;
-                pos += c;
-            }
-            if (patch_w + block_size > patch_cap) return ERR_INPUT;
-            // shuffle into per-plane layout in the patch area
-            for (size_t p = 0; p < bpp; ++p) {
-                uint8_t* dst = patch + patch_w + p * 256;
-                for (size_t e = 0; e < 256; ++e) dst[e] = dec[e * bpp + p];
-                po[p] = (int32_t)(size + patch_w + p * 256);
-                pk[p] = 3;
-                pv[p] = 0;
-            }
-            patch_w += block_size;
-            continue;
-        }
-        if (pos + (ptrdiff_t)hdr_w >= n) return ERR_SRC;
-        const uint8_t* codes = src + pos;
-        pos += hdr_w;
-        for (size_t p = 0; p < bpp; ++p) {
-            const int code = (codes[p >> 1] >> (4 * (p & 1))) & 15;
-            po[p] = (int32_t)pos;
-            pv[p] = 0;
-            if (code == 0) {
-                if (pos >= n) return ERR_SRC;
-                pk[p] = 2;
-                pv[p] = src[pos++];
-            } else if (code == 1) {
-                if (pos + 256 > n) return ERR_SRC;
-                pk[p] = 3;
-                pos += 256;
-            } else if (code == 2 || code == 3) {
-                pk[p] = (uint8_t)(code == 2 ? 0 : 1);
-                ptrdiff_t c = skip_plane(src + pos, n - pos, code == 3);
-                if (c < 0) return ERR_SRC;
-                pos += c;
-            } else {
-                return ERR_INPUT;
-            }
-        }
-    }
-
-    const size_t rem = nbytes - nb * block_size;
-    if (rem) {
-        if (pos == n) return ERR_SRC;
-        if (src[pos++] != 254) return ERR_INPUT;
-        // decode the partial tail on the host into the patch area
-        uint8_t* out = scratch;  // interleaved partial bytes
-        const size_t line_size = 16 * bpp;
-        const size_t lines = rem / line_size;
-        uint8_t* planes = scratch + 256 * bpp;
-        if (lines) {
-            if (pos + (ptrdiff_t)hdr_w >= n) return ERR_SRC;
-            const uint8_t* codes = src + pos;
-            pos += hdr_w;
-            for (size_t p = 0; p < bpp; ++p) {
-                const int code = (codes[p >> 1] >> (4 * (p & 1))) & 15;
-                uint8_t* plane = planes + p * 256;
-                if (code == 0) {
-                    if (pos >= n) return ERR_SRC;
-                    std::memset(plane, src[pos++], 16 * lines);
-                } else if (code == 2) {
-                    ptrdiff_t c = decode_plane(src + pos, n - pos, (int)lines,
-                                               false, plane);
-                    if (c < 0) return ERR_SRC;
-                    pos += c;
-                } else {
-                    return ERR_INPUT;
-                }
-            }
-            for (size_t p = 0; p < bpp; ++p)
-                for (size_t e = 0; e < 16 * lines; ++e)
-                    out[e * bpp + p] = planes[p * 256 + e];
-        }
-        const size_t tail = rem - lines * line_size;
-        if (tail) {
-            if (pos + (ptrdiff_t)tail > n) return ERR_SRC;
-            std::memcpy(out + lines * line_size, src + pos, tail);
-            pos += tail;
-        }
-        if (patch_w + rem > patch_cap) return ERR_INPUT;
-        std::memcpy(patch + patch_w, out, rem);
-        tail_info[0] = (int64_t)(size + patch_w);
-        tail_info[1] = (int64_t)rem;
-        patch_w += rem;
-    }
-    patch_len[0] = (int64_t)patch_w;
     return pos;
 }
 
@@ -1095,7 +867,6 @@ ptrdiff_t parse_superblock_rows(const uint8_t* src, ptrdiff_t n, size_t bpp,
         if (pos >= n) return ERR_SRC;
         const uint8_t marker = src[pos];
         int32_t* bpo = po + b * bpp;
-        int32_t* brt = rt + b * bpp * 16;
         if (marker == 252 || marker == 253) {  // COPY / LZ -> inline
             const size_t keep = (size_t)(pos - seg);
             if (vpos + keep + block_size > row_bytes) return ERR_INPUT;
@@ -1646,9 +1417,9 @@ static int huf_decode_stream(const uint8_t* src, size_t n,
 //   four: 4-stream layout (6-byte jump table)
 //   treeless: reuse the previous block's table (ctx)
 // Returns 0 or negative error.
-EXPORT ptrdiff_t stn_huf_lits(const uint8_t* src, size_t n, int four,
-                              int treeless, size_t regenerated,
-                              uint8_t* ctx_blob, uint8_t* out) {
+ptrdiff_t stn_huf_lits(const uint8_t* src, size_t n, int four,
+                       int treeless, size_t regenerated,
+                       uint8_t* ctx_blob, uint8_t* out) {
     ZstdDecCtx* ctx = (ZstdDecCtx*)ctx_blob;
     size_t p = 0;
     if (!treeless) {
@@ -1803,145 +1574,7 @@ EXPORT ptrdiff_t stn_huf_anchors(const uint8_t* src, size_t n,
     return 0;
 }
 
-// Code lengths (0 = unused) straight from a literals tree description —
-// the exact table the section was encoded with, so callers (the decode-
-// anchor sidecar, zstd_frame._block_anchor_entry) need no host Huffman
-// rebuild. src/n: bytes after the literals-section header.
-// Returns the description's byte length (> 0) or a negative error.
-EXPORT ptrdiff_t stn_huf_tree_lens(const uint8_t* src, size_t n,
-                                   uint8_t* out_lens) {
-    if (n < 1) return ERR_SRC;
-    uint8_t weights[256];
-    int count;
-    size_t p;
-    const uint8_t hb = src[0];
-    if (hb < 128) {  // FSE-compressed weights, hb = compressed size
-        if (1 + (size_t)hb > n) return ERR_SRC;
-        if (huf_fse_weights(src + 1, hb, weights, &count)) return ERR_INPUT;
-        p = 1 + hb;
-    } else {  // direct 4-bit weights
-        count = hb - 127;
-        const size_t bytes = ((size_t)count + 1) / 2;
-        if (1 + bytes > n) return ERR_SRC;
-        for (int i = 0; i < count; ++i) {
-            const uint8_t bb = src[1 + i / 2];
-            weights[i] = (i & 1) ? (bb & 15) : (bb >> 4);
-        }
-        p = 1 + bytes;
-    }
-    uint32_t total = 0;
-    for (int i = 0; i < count; ++i)
-        if (weights[i]) total += 1u << (weights[i] - 1);
-    if (total == 0) return ERR_INPUT;
-    const int tl = highbit_u32(total) + 1;
-    const uint32_t rest = (1u << tl) - total;
-    if (rest == 0 || (rest & (rest - 1))) return ERR_INPUT;
-    weights[count] = (uint8_t)(highbit_u32(rest) + 1);
-    if (tl > 11 || count >= 256) return ERR_INPUT;
-    for (int s = 0; s < 256; ++s) out_lens[s] = 0;
-    for (int s = 0; s <= count; ++s)
-        if (weights[s]) out_lens[s] = (uint8_t)(tl + 1 - weights[s]);
-    return (ptrdiff_t)p;
-}
-
 EXPORT size_t stn_zstd_ctx_size() { return sizeof(ZstdDecCtx); }
-
-// Decode one sequences section (RFC §3.1.1.3.2): nseq header, channel
-// modes, FSE tables, interleaved backward bitstream, repcode resolution.
-//   reps: 3 running repeat-offset registers (in/out; frame start = 1,4,8)
-//   ctx:  persistent tables for Repeat_Mode across blocks
-// Outputs resolved (ll, ml, offset) triples. Returns nseq or negative.
-EXPORT ptrdiff_t stn_zstd_seqs(const uint8_t* sec, size_t n, int64_t* reps,
-                               uint8_t* ctx_blob, int32_t* ll_out,
-                               int32_t* ml_out, int64_t* off_out,
-                               size_t cap) {
-    ZstdDecCtx* ctx = (ZstdDecCtx*)ctx_blob;
-    if (n < 1) return ERR_SRC;
-    size_t p = 0;
-    uint32_t nseq;
-    const uint8_t b0 = sec[p++];
-    if (b0 < 128) {
-        nseq = b0;
-    } else if (b0 < 255) {
-        if (p >= n) return ERR_SRC;
-        nseq = ((uint32_t)(b0 - 128) << 8) + sec[p++];
-    } else {
-        if (p + 2 > n) return ERR_SRC;
-        nseq = sec[p] + ((uint32_t)sec[p + 1] << 8) + 0x7F00;
-        p += 2;
-    }
-    if (nseq == 0) return 0;
-    if (nseq > cap || p >= n) return ERR_INPUT;
-    const uint8_t modes = sec[p++];
-    if (modes & 3) return ERR_INPUT;  // reserved bits
-    size_t used;
-    if (ctx->ll.build((modes >> 6) & 3, kLLDefault, 35, 6, 9, sec + p,
-                      n - p, &used))
-        return ERR_INPUT;
-    p += used;
-    if (ctx->of.build((modes >> 4) & 3, kOFDefault, 28, 5, 8, sec + p,
-                      n - p, &used))
-        return ERR_INPUT;
-    p += used;
-    if (ctx->ml.build((modes >> 2) & 3, kMLDefault, 52, 6, 9, sec + p,
-                      n - p, &used))
-        return ERR_INPUT;
-    p += used;
-    BwdBits br;
-    if (br.init(sec + p, n - p)) return ERR_SRC;
-    ctx->ll.init_state(br);
-    ctx->of.init_state(br);
-    ctx->ml.init_state(br);
-    for (uint32_t i = 0; i < nseq; ++i) {
-        const uint8_t of_code = ctx->of.symbol();
-        if (of_code > 31) return ERR_INPUT;
-        const uint64_t off_val = (1ull << of_code) + br.read(of_code);
-        const uint8_t ml_code = ctx->ml.symbol();
-        if (ml_code > 52) return ERR_INPUT;
-        const uint32_t ml = kMLBase[ml_code] + br.read(kMLBits[ml_code]);
-        const uint8_t ll_code = ctx->ll.symbol();
-        if (ll_code > 35) return ERR_INPUT;
-        const uint32_t ll = kLLBase[ll_code] + br.read(kLLBits[ll_code]);
-        int64_t off;
-        if (off_val > 3) {
-            off = (int64_t)(off_val - 3);
-            reps[2] = reps[1];
-            reps[1] = reps[0];
-            reps[0] = off;
-        } else {
-            const int idx = (int)off_val - 1 + (ll == 0 ? 1 : 0);
-            if (idx == 0) {
-                off = reps[0];
-            } else if (idx == 1) {
-                off = reps[1];
-                reps[1] = reps[0];
-                reps[0] = off;
-            } else if (idx == 2) {
-                off = reps[2];
-                reps[2] = reps[1];
-                reps[1] = reps[0];
-                reps[0] = off;
-            } else {
-                off = reps[0] - 1;
-                if (off <= 0) return ERR_INPUT;
-                reps[2] = reps[1];
-                reps[1] = reps[0];
-                reps[0] = off;
-            }
-        }
-        if (off <= 0) return ERR_INPUT;
-        ll_out[i] = (int32_t)ll;
-        ml_out[i] = (int32_t)ml;
-        off_out[i] = off;
-        if (i + 1 < nseq) {  // update order: LL, ML, OF (RFC)
-            ctx->ll.update(br);
-            ctx->ml.update(br);
-            ctx->of.update(br);
-        }
-    }
-    if (br.bits != 0) return ERR_INPUT;  // stream must be fully consumed
-    return (ptrdiff_t)nseq;
-}
 
 // Build the W-chunked copy-op program for one block's sequences.
 // Each op is (dst, src, flag) int32; flag 1 = source is the literal
@@ -2054,79 +1687,11 @@ EXPORT ptrdiff_t stn_recode_reps_enc(size_t nseq, const int32_t* ll,
     return (ptrdiff_t)nseq;
 }
 
-// Host twin of the DEVICE kernel's walk: identical to stn_zstd_seqs but
-// emits RAW offset VALUES (no repcode resolution) so blocks that exceed
-// the device buckets can join the same uniform stn_resolve_reps pass as
-// device-decoded blocks. Returns nseq or a negative error.
-EXPORT ptrdiff_t stn_zstd_seqs_raw(const uint8_t* sec, size_t n,
-                                   uint8_t* ctx_blob, int32_t* ll_out,
-                                   int32_t* ml_out, int32_t* ofv_out,
-                                   size_t cap) {
-    ZstdDecCtx* ctx = (ZstdDecCtx*)ctx_blob;
-    if (n < 1) return ERR_SRC;
-    size_t p = 0;
-    uint32_t nseq;
-    const uint8_t b0 = sec[p++];
-    if (b0 < 128) {
-        nseq = b0;
-    } else if (b0 < 255) {
-        if (p >= n) return ERR_SRC;
-        nseq = ((uint32_t)(b0 - 128) << 8) + sec[p++];
-    } else {
-        if (p + 2 > n) return ERR_SRC;
-        nseq = sec[p] + ((uint32_t)sec[p + 1] << 8) + 0x7F00;
-        p += 2;
-    }
-    if (nseq == 0) return 0;
-    if (nseq > cap || p >= n) return ERR_INPUT;
-    const uint8_t modes = sec[p++];
-    if (modes & 3) return ERR_INPUT;
-    size_t used;
-    if (ctx->ll.build((modes >> 6) & 3, kLLDefault, 35, 6, 9, sec + p,
-                      n - p, &used))
-        return ERR_INPUT;
-    p += used;
-    if (ctx->of.build((modes >> 4) & 3, kOFDefault, 28, 5, 8, sec + p,
-                      n - p, &used))
-        return ERR_INPUT;
-    p += used;
-    if (ctx->ml.build((modes >> 2) & 3, kMLDefault, 52, 6, 9, sec + p,
-                      n - p, &used))
-        return ERR_INPUT;
-    p += used;
-    BwdBits br;
-    if (br.init(sec + p, n - p)) return ERR_SRC;
-    ctx->ll.init_state(br);
-    ctx->of.init_state(br);
-    ctx->ml.init_state(br);
-    for (uint32_t i = 0; i < nseq; ++i) {
-        const uint8_t of_code = ctx->of.symbol();
-        if (of_code > 30) return ERR_INPUT;
-        const uint32_t off_val = (1u << of_code) + br.read(of_code);
-        const uint8_t ml_code = ctx->ml.symbol();
-        if (ml_code > 52) return ERR_INPUT;
-        const uint32_t ml = kMLBase[ml_code] + br.read(kMLBits[ml_code]);
-        const uint8_t ll_code = ctx->ll.symbol();
-        if (ll_code > 35) return ERR_INPUT;
-        const uint32_t ll = kLLBase[ll_code] + br.read(kLLBits[ll_code]);
-        ll_out[i] = (int32_t)ll;
-        ml_out[i] = (int32_t)ml;
-        ofv_out[i] = (int32_t)off_val;
-        if (i + 1 < nseq) {
-            ctx->ll.update(br);
-            ctx->ml.update(br);
-            ctx->of.update(br);
-        }
-    }
-    if (br.bits != 0) return ERR_INPUT;
-    return (ptrdiff_t)nseq;
-}
-
 // Header/table prep for the DEVICE FSE sequence decoder
-// (entropy/seqdec_pallas.py): parse the nseq header + channel modes and
-// build the three decode tables — the same machinery stn_zstd_seqs uses,
-// Repeat_Mode ctx persistence included — WITHOUT touching the bitstream
-// (the per-sequence state walk runs on the TPU; the host stays
+// (entropy/seqdec_kernel.py): parse the nseq header + channel modes and
+// build the three decode tables, Repeat_Mode ctx persistence included,
+// WITHOUT touching the bitstream
+// (the per-sequence state walk runs on the card; the host stays
 // O(table size) per block, not O(nseq)).
 //   out_tab:  (3*512,) int32 per-state entries sym | nb<<8 | base<<16,
 //             channel rows ch*512 + state, channel order LL, OF, ML.
@@ -2197,9 +1762,9 @@ EXPORT ptrdiff_t stn_zstd_dtables(const uint8_t* sec, size_t n,
 
 // Repcode resolution for the DEVICE FSE sequence decoder: consumes the
 // kernel's RAW (ll, offset_value) pairs, resolves the repeat offsets
-// exactly like stn_zstd_seqs (RFC 8878 §3.1.1.3.2.1.1; reps updated in
+// (RFC 8878 §3.1.1.3.2.1.1; reps updated in
 // place) and writes the resolved offsets. O(nseq) integer work, zero bit
-// reading — the entropy half already ran on the TPU. Returns 0 or a
+// reading — the entropy half already ran on the card. Returns 0 or a
 // negative error.
 EXPORT ptrdiff_t stn_resolve_reps(size_t nseq, const int32_t* ll,
                                   const int32_t* ofv, int64_t* reps,
@@ -2504,32 +2069,6 @@ inline ptrdiff_t seq_encode(const int32_t* seqs_in, size_t n, int64_t* reps,
     bw.close();
     return (ptrdiff_t)(w + bw.n);
 }
-
-}  // namespace
-
-// FSE compression-table build (the tANS spread + delta construction) for
-// the device-FSE encode prep: the python twin (fse.build_ctable) was 45%
-// of prep_block's host time (sequential spread loop). Same tables as
-// FseEncSeq::build — byte-identity of the device bitstreams is pinned by
-// tests/test_fse_pallas.py.
-//   norm: (n_sym,) int32 normalized counts (-1 allowed); tlog <= 9
-//   out_state: (512,) int32; out_dnb/out_dfs: (64,) int64
-EXPORT ptrdiff_t stn_fse_ctable(const int32_t* norm, int n_sym, int tlog,
-                                int32_t* out_state, int64_t* out_dnb,
-                                int64_t* out_dfs) {
-    if (tlog < 1 || tlog > 9 || n_sym < 1 || n_sym > 64) return ERR_INPUT;
-    FseEncSeq enc;
-    enc.build(norm, n_sym, tlog);
-    const int size = 1 << tlog;
-    for (int i = 0; i < size; ++i) out_state[i] = enc.state_table[i];
-    for (int s = 0; s < n_sym; ++s) {
-        out_dnb[s] = enc.dnb[s];
-        out_dfs[s] = enc.dfs[s];
-    }
-    return 0;
-}
-
-namespace {
 
 // ---- literals section (twin of zstd_frame.compress_literals) ----
 

@@ -32,6 +32,7 @@ import torch
 from ..constants import ERROR_INVALID_INPUT
 from ..engine import (CHUNK_BYTES, TorchEngine, _block_records, _to_device,
                       frame_header_bytes, prepare_blocks)
+from ..host.staging import Staging, put
 from ..ops.decode_kernel import decode_rows
 from ..ops.encode_kernel import (encode_superblocks,
                                  encode_superblocks_records, place_records)
@@ -169,7 +170,6 @@ def _decode_frame_sharded(frame: np.ndarray, bpp: int, group, dev):
     on the group's device and copied to the host once. A short final
     superblock is decoded on the host (decompress_superblock)."""
     from .. import frame as fr
-    from ..entropy.device_decode import Staging
 
     found = _block_records(frame, bpp, tail=True)
     if found is None:
@@ -196,7 +196,7 @@ def _decode_frame_sharded(frame: np.ndarray, bpp: int, group, dev):
     dec = all_gather(words, group)[:n_sb].view(-1)
     if dec.device.type == "cuda":  # one copy down, into a pinned buffer
         dec = Staging(dev).get("decoded", dec.numel()).copy_(dec)
-    fr._put(out, [0, 0, n_sb * sb], dec.numpy())  # page faults: on threads
+    put(out, [0, 0, n_sb * sb], dec.numpy())  # page faults: on threads
     if tail:
         code, p, csize, w = tail[0]
         r = fr.decompress_superblock(code, frame[p : p + csize], bpp,

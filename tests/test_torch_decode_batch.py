@@ -6,6 +6,7 @@ kernel's launch plan."""
 
 import numpy as np
 import pytest
+import torch
 
 from stenos_tpu import frame as ref_frame
 from stenos_tpu_torch import engine, frame
@@ -13,6 +14,7 @@ from stenos_tpu_torch.constants import (ERROR_INVALID_INPUT, METHOD_BLOCK,
                                         METHOD_BLOCK_ZSTD, METHOD_COPY,
                                         METHOD_ZSTD)
 from stenos_tpu_torch.engine import TorchEngine
+from stenos_tpu_torch.host import staging
 from stenos_tpu_torch.ops.decode_kernel import (OUT_MAX, SMEM_LIMIT,
                                                 launch_plan)
 
@@ -100,14 +102,14 @@ def test_corrupt_residual_in_a_batch_raises_after_the_ones_before(
         frame.decompress(bad, BPP, engine=None)
     assert e.value.code == ERROR_INVALID_INPUT
     written = []
-    real = frame._put
+    real = staging.put
 
     def spy(out, run, host):
         if run is not None:
             written.append((run[0], run[2]))
         return real(out, run, host)
 
-    monkeypatch.setattr(frame, "_put", spy)
+    monkeypatch.setattr(staging, "put", spy)
     monkeypatch.setattr(engine, "CHUNK_BYTES", per_batch * sb)
     with pytest.raises(frame.StenosError) as e:
         frame.decompress(bad, BPP, engine=TorchEngine("cpu"))
@@ -151,3 +153,55 @@ def test_launch_plan_fits_and_covers_every_plane():
     # a one-slab read spreads; a 64 MiB call fills the card in waves
     assert launch_plan(4, 128, 1)["tiles"] >= 128
     assert 512 * launch_plan(4, 128, 512)["tiles"] >= 8 * 132
+
+
+@pytest.fixture(scope="module")
+def level1():
+    """A level-1 frame of 6 full METHOD_BLOCK superblocks of sorted int32:
+    three batches of two."""
+    rng = np.random.default_rng(5)
+    sb = 256 * BPP << SHIFT
+    data = np.sort(rng.integers(0, 1 << 30, 6 * sb // BPP)).astype(
+        "<u4").view(np.uint8)
+    f = frame.compress(data, BPP, 1, custom_shift=SHIFT)
+    assert [m for m, _ in _records(f, BPP)] == [METHOD_BLOCK] * 6
+    return data, f, sb
+
+
+def test_keep_device_takes_the_batcher_with_its_device_sink(level1,
+                                                            monkeypatch):
+    """decompress_frame_batched(keep_device=True) through frame's batcher:
+    one tensor a batch of two superblocks, the two parse buffer sets in
+    turns (the first refilled by the third batch), the data in order."""
+    data, f, sb = level1
+    sets = []
+    real = engine.prepare_blocks
+
+    def spy(fr, items, bpp, sb_, bufs):
+        sets.append(bufs)
+        return real(fr, items, bpp, sb_, bufs)
+
+    monkeypatch.setattr(engine, "prepare_blocks", spy)
+    monkeypatch.setattr(engine, "CHUNK_BYTES", 2 * sb)
+    got = engine.decompress_frame_batched(f, BPP, device="cpu",
+                                          keep_device=True)
+    assert [t.numel() for t in got] == [2 * sb] * 3
+    assert sets[0] is sets[2] and sets[0] is not sets[1]
+    assert torch.cat(got).numpy().tobytes() == data.tobytes()
+    assert frame.decompress(f, BPP).tobytes() == data.tobytes()
+
+
+def test_keep_device_gives_none_for_a_corrupt_third_batch(level1,
+                                                          monkeypatch):
+    """A superblock of the third batch that the row parse rejects: None,
+    and the next call, on the good frame, decodes it right."""
+    data, f, sb = level1
+    bad = bytearray(f)
+    bad[_records(f, BPP)[4][1] + 4] = 0xFF  # its first block header
+    monkeypatch.setattr(engine, "CHUNK_BYTES", 2 * sb)
+    eng = TorchEngine("cpu")
+    assert engine.decompress_frame_batched(bytes(bad), BPP, eng,
+                                           keep_device=True) is None
+    got = engine.decompress_frame_batched(f, BPP, eng, keep_device=True)
+    assert len(got) == 3
+    assert torch.cat(got).numpy().tobytes() == data.tobytes()
