@@ -38,7 +38,10 @@ K1 launch (phase_fold: K1 places every record by a decoupled look-back)
 against the plain version and against K1's records placed by the public
 place_records, byte for byte over the capacity, at bpp 1-16 and 1 to
 16,384 superblocks, on 55 column lengths and over 200 calls back to back,
-every frame on dirtied memory; K2 and K2b timed at
+every frame on dirtied memory; K1's launch descriptors over 200 calls back
+to back that change key at every call, one under a side stream
+(phase_launch: one build a key, 3 device allocations a frame-mode call);
+K2 and K2b timed at
 their paths' shapes beside their bounds; then DeviceCompressedArray(entropy=True) on 512 MiB of a
 low-cardinality byte column (K4 and K5 timed at its build's, to_array's and
 one slab read's shapes) and on the sorted int32; then the device
@@ -57,9 +60,11 @@ times the kernels with CUDA events and prints the kernels' JSON line. With
 --old-src (a checkout of an earlier commit), that commit's K2/K2b, K4, K5
 and K6 are timed beside these on the same inputs, in turns, and must give
 the same outputs; so are its device frame compress (sorted int32 and a
-day's float64 column), K1 streams launch, K1b and place_records
-(phase_fold_times). Any failure ends the run with a non-zero exit code. The
-last line is {"ok": true, "device": {...}}.
+day's float64 column: the launch path's host split by step, each call
+waited for as the benchmark's cells do, and its device allocations), K1
+streams launch, K1b and place_records (phase_launch_times). Any failure
+ends the run with a non-zero exit code. The last line is {"ok": true,
+"device": {...}}.
 """
 
 import argparse
@@ -294,12 +299,10 @@ KERNEL_COUNTS = ((encode_kernel, "launches", "encode_blocks"),
                  (fse_kernel, "launches", "fse_encode"),
                  (seqdec_kernel, "launches", "seq_decode"),
                  (seq_exec, "launches", "seq_exec"))
-# the kernels' launches and, counted apart, the frame-mode K1 launches that
-# zeroed a frame's capacity and that placed their own records (both also in
+# the kernels' launches and, counted apart, the frame-mode K1 launches
+# (each zeroes a frame's capacity and places its own records; also in
 # encode_blocks) and encode_short's
-COUNTS = KERNEL_COUNTS + ((encode_kernel, "launches_frame_tail",
-                           "frame_tail"),
-                          (encode_kernel, "launches_frame_placed",
+COUNTS = KERNEL_COUNTS + ((encode_kernel, "launches_frame_placed",
                            "frame_placed"),
                           (encode_kernel, "launches_short", "encode_short"))
 SOURCES = ("encode_blocks", "decode_rows", "huff_encode", "huff_decode",
@@ -731,20 +734,17 @@ def phase_timing(dev, raw, frame1, frame2):
         enc, encode_kernel.encode_superblocks_plain(x, 4, 2))}
     check(err["encode_blocks"] == 0, "encode at the main path's shape")
     k_ms = cuda_ms(lambda: encode_kernel.encode_superblocks(x, 4, 2), 10)
-    # the launch alone, without the wrapper's read of the longest stream;
-    # then with zeros written to the stream bound, as index rows get them
+    # the launch alone, without the wrapper's read of the longest stream
     rb = record_bound(sb // 1024, 4)
     launch_ms = cuda_ms(lambda: encode_kernel._encode_rows(
-        x, 4, 2, rb - 4, 0, False, False), 10)
-    tail_ms = cuda_ms(lambda: encode_kernel._encode_rows(
-        x, 4, 2, rb - 4, 0, True, False), 10)
+        x, 4, 2, rb - 4, 0, False), 10)
     p_ms = cuda_ms(lambda: encode_kernel.encode_superblocks_plain(x, 4, 2), 2)
     # the input, the streams, the sizes
     stream_bytes = int(enc[1].sum())
     moved = (x.numel() + stream_bytes + 4 * (enc[2].numel() + enc[3].numel()
                                              + per_call))
     out["encode_blocks"] = {
-        "ms": k_ms, "launch_ms": launch_ms, "launch_zero_tail_ms": tail_ms,
+        "ms": k_ms, "launch_ms": launch_ms,
         "plain_ms": p_ms,
         **encode_bound(x.numel(), moved, enc[0].numel() - stream_bytes)}
     h2d = cuda_ms(lambda: host.to(dev), 5)
@@ -1132,8 +1132,8 @@ def phase_sharding(dev, raw, frames, card):
             # and places its records; the gathered variant: K1's records
             # mode, then place_records, which zeroes its own
             ragged = name == "ragged"
-            check((c["encode_blocks"], c["frame_tail"], c["frame_placed"])
-                  == ((1, 1, 1) if ragged else (2, 0, 0)),
+            check((c["encode_blocks"], c["frame_placed"])
+                  == ((1, 1) if ragged else (2, 0)),
                   f"mesh device frame {name}: K1 launches {c}")
             check(frame[:length].cpu().numpy().tobytes() == frames[1],
                   f"compress_device_sharded ({name}) differs from "
@@ -1445,8 +1445,8 @@ def phase_device(dev, raw, frame1):
     torch.cuda.synchronize()
     fc_s = time.perf_counter() - t0
     res["launches"]["frame_compress"] = c = read_counts()
-    check((c["encode_blocks"], c["frame_tail"], c["frame_placed"])
-          == (1, 1, 1), f"compress_frame_device: not one frame-mode K1 "
+    check((c["encode_blocks"], c["frame_placed"])
+          == (1, 1), f"compress_frame_device: not one frame-mode K1 "
           f"launch that zeroes the frame and places the records: {c}")
     got = frame[: int(length)].cpu().numpy().tobytes()
     check(np.array_equal(stt.decompress(got, 4, device=dev), raw),
@@ -1479,12 +1479,11 @@ def phase_device(dev, raw, frame1):
     # same frame by two: K1's records mode, then the public place_records
     # (it zeroes the tail itself)
     rb = record_bound(nb, 4)
-    rows_t, tot_t = encode_kernel._encode_rows(x, 4, 2, rb, 4, False,
-                                               False)[:2]
+    rows_t, tot_t = encode_kernel._encode_rows(x, 4, 2, rb, 4, False)[:2]
     launch_ms = cuda_ms(lambda: encode_kernel._frame(x, 4, 2, hdr, rb), 10)
     apart_ms = [
-        cuda_ms(lambda: encode_kernel._encode_rows(x, 4, 2, rb, 4, False,
-                                                   False), 10),
+        cuda_ms(lambda: encode_kernel._encode_rows(x, 4, 2, rb, 4, False),
+                10),
         cuda_ms(lambda: encode_kernel.place_records(rows_t, tot_t, hdr, nb,
                                                     4), 10)]
     placed, placed_len = frame_on_dirty(lambda: encode_kernel.place_records(
@@ -1707,8 +1706,8 @@ def phase_fold(dev):
             frame, length = frame_on_dirty(
                 lambda: compress_frame_device(x, bpp, 1), cap, dev, what)
             c = read_counts()
-            check((c["encode_blocks"], c["frame_placed"], c["frame_tail"])
-                  == (1, 1, 1), (*what, "launches", c))
+            check((c["encode_blocks"], c["frame_placed"]) == (1, 1),
+                  (*what, "launches", c))
             want, n = plain_frame(x, bpp, hdr, cap)
             check(int(length) == n and torch.equal(frame, want),
                   (*what, "differs from the plain version"))
@@ -1796,40 +1795,217 @@ def sorted_int32_device(dev, nbytes, seed=5):
     return v.view(torch.uint8).view(-1, 131072)
 
 
-def phase_fold_times(dev, old):
-    """The folded frame mode against the old two-launch frame (old: the
-    parent commit's package, load_old) in turns, outputs equal: the device
-    frame compress at the sorted cell's shape (4096 superblocks of sorted
-    int32) and on a day's float64 column; the old call's K1 and
-    place_records apart beside the new K1; the public place_records; K1's
+LAUNCH_CALLS = 200  # phase_launch's calls back to back
+SPLIT_CALLS = 100  # calls a turn of phase_launch_times' host split
+
+
+def allocations(fn, dev):
+    """(fn(), the device allocations it made)."""
+    torch.cuda.synchronize()
+    a = torch.cuda.memory_stats(dev)["allocation.all.allocated"]
+    out = fn()
+    return out, torch.cuda.memory_stats(dev)["allocation.all.allocated"] - a
+
+
+def phase_launch(dev):
+    """K1's launch descriptors (ops/encode_kernel.py _descriptor) from an
+    empty cache, over LAUNCH_CALLS compress_frame_device calls back to back
+    that change key at every call: 2-D at bpp 4 (nb 128, the sorted
+    cell's), a column at bpp 8 (nb 64, the column cell's: K1's column
+    instantiation and encode_short), 2-D at bpp 8 (nb 64) and 2-D at bpp 4
+    with 64 KiB superblocks (nb 64). descriptor_builds equals the number
+    of distinct keys, 4, and no call after each key's first builds; each
+    input's first frame equals the plain version and every later frame its
+    input's first. One call runs under a side stream: its K1 span's events
+    lie on that stream, and the side stream's own events around the call
+    hold K1's time. A frame-mode call makes 3 device allocations."""
+    sb = 131072
+    inputs = [(fold_data(dev, 4, 600, sb), 4),
+              (ts_column(dev, 12 * sb + 3 * 2048 + 704, seed=30), 8),
+              (fold_data(dev, 8, 300, sb), 8),
+              (sorted_int32_device(dev, 600 * sb).reshape(-1, sb // 2), 4)]
+    encode_kernel._descriptors.clear()
+    encode_kernel.descriptor_builds = 0
+    refs = []
+    for k, (x, bpp) in enumerate(inputs):
+        (frame, length), n_alloc = allocations(
+            lambda: compress_frame_device(x, bpp, 1), dev)
+        check(n_alloc == 3, ("launch", k, "device allocations", n_alloc))
+        if x.dim() == 2:
+            want, n = plain_frame(x, bpp, frame_header_bytes(
+                x.numel(), x.shape[1], bpp, 1), frame.numel())
+            check(int(length) == n and torch.equal(frame, want),
+                  ("launch", k, "differs from the plain version"))
+            del want
+        else:
+            plain, plain_len = compress_frame_device(x.cpu(), bpp, 1)
+            check(int(plain_len) == int(length)
+                  and torch.equal(frame.cpu(), plain),
+                  ("launch", k, "differs from the CPU plain version"))
+        refs.append((frame, int(length)))
+    keys = sorted(encode_kernel._descriptors)
+    check(len(keys) == 4 and encode_kernel.descriptor_builds == 4,
+          ("launch descriptors", keys, encode_kernel.descriptor_builds))
+    # the reference for the side stream's events: K1's time on input 0
+    k1_ms = cuda_ms(lambda: compress_frame_device(inputs[0][0], 4, 1), 5)
+    side_at = LAUNCH_CALLS // 2  # a call on input 0
+    side = torch.cuda.Stream(dev)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    outs = []
+    for i in range(LAUNCH_CALLS):
+        x, bpp = inputs[i % 4]
+        if i != side_at:
+            outs.append(compress_frame_device(x, bpp, 1))
+            continue
+        side.wait_stream(torch.cuda.current_stream(dev))
+        eng.timing = []  # the recorder on, for this call's spans
+        with torch.cuda.stream(side):
+            ev[0].record()
+            outs.append(compress_frame_device(x, bpp, 1))
+            ev[1].record()
+        eng.timing = None
+        torch.cuda.current_stream(dev).wait_stream(side)
+    torch.cuda.synchronize()
+    spans = [r for r in trace.records() if r.name == "stn.k1.launch"]
+    side_ms = ev[0].elapsed_time(ev[1])
+    check(len(spans) == 1
+          and spans[0]._queue.cuda_stream == side.cuda_stream
+          and side_ms >= 0.5 * k1_ms,
+          ("side stream: K1 not on it", len(spans), side_ms, k1_ms))
+    for i, (frame, length) in enumerate(outs):
+        want, n = refs[i % 4]
+        check(int(length) == n and torch.equal(frame, want),
+              ("launch", i, "differs from its input's first frame"))
+    check(encode_kernel.descriptor_builds == 4,
+          ("launch descriptors built in the loop",
+           encode_kernel.descriptor_builds))
+    res = {"calls": LAUNCH_CALLS, "keys": [list(k) for k in keys],
+           "descriptor_builds": encode_kernel.descriptor_builds,
+           "lags": {str(k): encode_kernel._descriptors[k][0].lag
+                    for k in keys},
+           "side_stream_ms": side_ms, "k1_ms": k1_ms}
+    del outs, refs, inputs
+    torch.cuda.empty_cache()
+    log(f"launch descriptors: {res}; {LAUNCH_CALLS} calls back to back "
+        "over 4 keys == each input's first frame == the plain version, 3 "
+        "device allocations a call, K1 on the side stream under it")
+    return res
+
+
+class Stamped:
+    """A kernel library whose named C entries append (name,
+    time.perf_counter_ns()) to stamps as they are entered and as they
+    return; every other attribute is the library's."""
+
+    def __init__(self, lib, names, stamps):
+        self._lib = lib
+        for name in names:
+            fn = getattr(lib, name)
+
+            def call(*args, fn=fn, name=name):
+                stamps.append((name, time.perf_counter_ns()))
+                r = fn(*args)
+                stamps.append((name, time.perf_counter_ns()))
+                return r
+
+            setattr(self, name, call)
+
+    def __getattr__(self, name):
+        return getattr(self._lib, name)
+
+
+def launch_split(fn, calls, stamps):
+    """calls of fn() (a compress_frame_device) as the cells make them: the
+    length copied to pinned host memory and waited for before the next
+    call, CUDA events before the call and behind the copy. Medians of the
+    host's ns stamps (stamps: K1's and encode_short's C entries, Stamped)
+    in ms: entry to K1's C entry (to_k1), inside it (k1_call), encode_short's
+    C entry (short_call), K1's return to the call's (after), the whole call
+    (host), and the events' time (call, p50 and p95)."""
+    pinned = torch.empty((), dtype=torch.int64, pin_memory=True)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    rows = []
+    for _ in range(calls):
+        stamps.clear()
+        ev[0].record()
+        t0 = time.perf_counter_ns()
+        frame, length = fn()
+        t1 = time.perf_counter_ns()
+        pinned.copy_(length, non_blocking=True)
+        ev[1].record()
+        ev[1].synchronize()
+        k1 = [t for n, t in stamps if n == "stenos_encode_superblocks"]
+        short = [t for n, t in stamps if n == "stenos_encode_short"]
+        rows.append({"to_k1": k1[0] - t0, "k1_call": k1[1] - k1[0],
+                     "short_call": short[1] - short[0] if short else 0,
+                     "after": t1 - k1[1], "host": t1 - t0,
+                     "call": ev[0].elapsed_time(ev[1]) * 1e6})
+        del frame, length
+    out = {}
+    for key in rows[0]:
+        v = sorted(r[key] for r in rows)
+        out[key] = v[len(v) // 2] / 1e6
+    v = sorted(r["call"] for r in rows)
+    out["call_p95"] = v[int(0.95 * (len(v) - 1))] / 1e6
+    return out
+
+
+def phase_launch_times(dev, old):
+    """This tree's launch path against the old one's (old: the parent
+    commit's package, load_old), in turns (old, new, new, old), outputs
+    equal: at the two cells' calls (4096 superblocks of sorted int32 at bpp
+    4; a day's float64 column at bpp 8), the host split of the launch path
+    (launch_split, SPLIT_CALLS calls a turn: both trees' K1 and
+    encode_short C entries stamped), a call's device allocations, and the
+    calls back to back by CUDA events; the public place_records; K1's
     streams-mode launch at 64 MiB and K1b at 512 MiB. ptxas's report of
     both sources."""
     res = {}
     x = sorted_int32_device(dev, 512 * MIB)
     col = ts_column(dev, 8 * COLUMN_SAMPLES)
-    for name, args in (("sorted", (x, 4, 1)), ("column", (col, 8, 1))):
-        res[name] = in_turns(
-            f"frame {name}", lambda: compress_frame_device(*args),
-            lambda: old.engine.compress_frame_device(*args), 10)
-    # the old call's two launches apart, beside the new one
+    stamps = []
+    loads = {}
+    for mod in (encode_kernel, old.encode_kernel):
+        load = loads[mod] = mod._cuda.load
+        libs = {}
+
+        def stamped(name, sig, load=load, libs=libs):
+            if name not in libs:
+                libs[name] = load(name, sig)
+                if name == "encode_blocks":
+                    libs[name] = Stamped(libs[name], (
+                        "stenos_encode_superblocks", "stenos_encode_short"),
+                        stamps)
+            return libs[name]
+
+        mod._cuda.load = stamped
+    try:
+        for name, args in (("sorted", (x, 4, 1)), ("column", (col, 8, 1))):
+            sides = {"new": lambda: compress_frame_device(*args),
+                     "old": lambda: old.engine.compress_frame_device(*args)}
+            a, b = (f()[0] for f in (sides["new"], sides["old"]))
+            check(torch.equal(a, b), f"frame {name}: differs from the old "
+                  "tree's")
+            del a, b
+            r = {"split": {"new": [], "old": []}}
+            for who in ("old", "new", "new", "old"):
+                r["split"][who].append(launch_split(sides[who], SPLIT_CALLS,
+                                                    stamps))
+            for who in ("new", "old"):
+                r["allocations_" + who] = allocations(sides[who], dev)[1]
+                r[who] = {k: sum(t[k] for t in r["split"][who]) / 2
+                          for k in r["split"][who][0]}
+            r["back_to_back"] = in_turns(f"frame {name}", sides["new"],
+                                         sides["old"], 10)
+            res[name] = r
+    finally:
+        for mod, load in loads.items():
+            mod._cuda.load = load
     sb = 131072
     nb = sb // 1024
     rb = record_bound(nb, 4)
     hdr = frame_header_bytes(x.numel(), sb, 4, 1)
-    fbuf = torch.empty(len(hdr) + x.shape[0] * rb, dtype=torch.uint8,
-                       device=dev)
-    rows_t, tot_t = old.encode_kernel._encode_rows(x, 4, 2, rb, 4, False,
-                                                   False, fbuf, len(hdr))[:2]
-    t = in_turns_s({
-        "k1": lambda: encode_kernel._frame(x, 4, 2, hdr, rb),
-        "old_k1": lambda: old.encode_kernel._encode_rows(
-            x, 4, 2, rb, 4, False, False, fbuf, len(hdr)),
-        "old_place_records": lambda: old.encode_kernel._place_records(
-            rows_t, tot_t, hdr, nb, 4, fbuf)}, rounds=10, events=True)
-    res["sorted_launches_ms"] = {k[: -len("_events")]: v * 1e3
-                                 for k, v in t.items()
-                                 if k.endswith("_events")}
-    del fbuf, rows_t, tot_t
     # the public place_records (the gathered mesh frame's), on K1's records
     rows_r, tot_r = encode_kernel.encode_superblocks_records(x, 4, 2)[:2]
     res["place_records"] = in_turns(
@@ -1843,7 +2019,7 @@ def phase_fold_times(dev, old):
         for key, name, new, old_fn, reps in (
                 ("k1_streams_64mib", "K1 streams launch",
                  lambda: encode_kernel._encode_rows(
-                     x64, 4, 2, rb - 4, 0, False, False)[1:4],
+                     x64, 4, 2, rb - 4, 0, False)[1:4],
                  lambda: old.encode_kernel._encode_rows(
                      x64, 4, 2, rb - 4, 0, False, False)[1:4], 50),
                 ("k1b_512mib", "K1b",
@@ -1859,7 +2035,7 @@ def phase_fold_times(dev, old):
                                     if "registers" in ln or "spill" in ln
                                     or "Compiling entry" in ln]
     for k, v in res.items():
-        log(f"fold times {k}: {v}")
+        log(f"launch times {k}: {v}")
     del x, col
     torch.cuda.empty_cache()
     return res
@@ -2844,8 +3020,8 @@ def main():
     ap.add_argument("--out", default="chiprun_out/chip_smoke.json")
     ap.add_argument("--old-src", help="a checkout of an earlier commit: its "
                     "K2/K2b, K4, K5 and K6 kernels and its device frame "
-                    "compress, K1 and place_records are timed beside these, "
-                    "in turns")
+                    "compress (with its launch path's host split), K1 and "
+                    "place_records are timed beside these, in turns")
     ap.add_argument("--gloo-rank", type=int, help="run one of "
                     "phase_sharding's two gloo ranks (phase_sharding starts "
                     "them) and print its JSON line")
@@ -2883,13 +3059,15 @@ def main():
     log(f"  [{time.perf_counter() - t0:.1f} s]")
     colres["fold"] = phase_fold(dev)
     log(f"  [{time.perf_counter() - t0:.1f} s]")
+    colres["launch"] = phase_launch(dev)
+    log(f"  [{time.perf_counter() - t0:.1f} s]")
     times.update(times_dev)
     err["encode_blocks"] = max(err["encode_blocks"],
                                err_dev.pop("encode_blocks"))
     err.update(err_dev)
     old = load_old(args.old_src) if args.old_src else None
     if old is not None:
-        colres["fold_times"] = phase_fold_times(dev, old)
+        colres["launch_times"] = phase_launch_times(dev, old)
         log(f"  [{time.perf_counter() - t0:.1f} s]")
     dtimes = phase_decode_times(dev, raw, res[1]["frame"], old)
     log(f"  [{time.perf_counter() - t0:.1f} s]")

@@ -850,48 +850,83 @@ encode_short(const uint8_t* __restrict__ tail, int rbytes, int bpp,
 }  // namespace
 
 #ifdef __CUDACC__
-// C interface (ctypes). Pointers are device pointers; the launch goes on
-// `stream`; the return value is cudaGetLastError() after the launch.
+namespace {
 
-// plane_off is null except in index mode; frame (cap bytes behind an
-// hlen-byte header h0, h1; length; status, n_sb + 1 words of scratch) null
-// except in frame mode, where status is zeroed on the stream first; a
-// column (nb_last < nb) only in frame mode. The geometry is the host's
-// launch plan (ops/encode_kernel.py launch_plan), smem its shared-memory
-// bytes.
+// A launch descriptor (ops/encode_kernel.py _Descriptor), built once for
+// each (device, instantiation, bpp, nb): the instantiation (kind 0: the
+// streams, records and index modes; 1: frame mode; 2: frame mode of a
+// column), the host's launch plan (ops/encode_kernel.py launch_plan), smem
+// its shared-memory bytes, and lag, the CTAs resident at once
+// (stenos_encode_prepare).
+struct Descriptor {
+    int kind;
+    Geometry geo;
+    int smem;
+    long long lag;
+};
+
+auto kernel_of(int kind) {
+    return kind == 0 ? encode_superblocks<false, false>
+           : kind == 1 ? encode_superblocks<false, true>
+                       : encode_superblocks<true, true>;
+}
+
+}  // namespace
+
+// C interface (ctypes). Pointers are device pointers; a launch goes on
+// `stream`; the return value is cudaGetLastError() after the launch (a
+// CUDA error code for stenos_encode_prepare).
+
+// Once for a descriptor, on its device (the current one): lets its
+// instantiation take the most dynamic shared memory the device allows (the
+// same value for every descriptor, so their order does not matter) and
+// fills in its lag.
+extern "C" int stenos_encode_prepare(void* desc, int device) {
+    Descriptor* d = (Descriptor*)desc;
+    const auto kernel = kernel_of(d->kind);
+    cudaFuncAttributes attr;
+    int optin, sms, per_sm;
+    cudaError_t e;
+    if ((e = cudaFuncGetAttributes(&attr, kernel)) != cudaSuccess
+        || (e = cudaDeviceGetAttribute(
+                &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device))
+               != cudaSuccess
+        || (e = cudaFuncSetAttribute(
+                kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                optin - (int)attr.sharedSizeBytes)) != cudaSuccess
+        || (e = cudaDeviceGetAttribute(
+                &sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess
+        || (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                &per_sm, kernel, kThreads, d->smem)) != cudaSuccess)
+        return (int)e;
+    d->lag = (long long)sms * (per_sm > 0 ? per_sm : 1);
+    return 0;
+}
+
+// One launch of the descriptor's instantiation. plane_off is null except
+// in index mode, which also zeroes each row past its record; frame (cap
+// bytes behind an hlen-byte header h0, h1; length; status, n_sb + 1 words
+// of scratch) null except in frame mode, where status is zeroed on the
+// stream first; nb_last < nb only for a column.
 extern "C" int stenos_encode_superblocks(
-        const void* data, long long n_sb, int nb, int nb_last, int bpp,
-        int level, void* out, long long row_w, int rec, int zero_tail,
+        const void* desc, const void* data, long long n_sb, int nb,
+        int nb_last, int bpp, int level, void* out, long long row_w, int rec,
         void* totals, void* bsizes, void* fsizes, void* plane_off,
         void* frame, long long cap, int hlen, unsigned long long h0,
-        unsigned long long h1, void* length, void* status, int tile_blocks,
-        int pad, int stage_bytes, int win_off, int codes_off, int smem,
-        void* stream) {
-    const Geometry geo{tile_blocks, pad, stage_bytes, win_off, codes_off};
-    Frame fr{(uint8_t*)frame, cap, h0, h1, (long long*)length,
-             (unsigned long long*)status, 0, hlen};
-    const auto kernel = !frame ? encode_superblocks<false, false>
-                        : nb_last == nb ? encode_superblocks<false, true>
-                                        : encode_superblocks<true, true>;
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
+        unsigned long long h1, void* length, void* status, void* stream) {
+    const Descriptor& d = *(const Descriptor*)desc;
+    const Frame fr{(uint8_t*)frame, cap, h0, h1, (long long*)length,
+                   (unsigned long long*)status, d.lag, hlen};
     if (frame) {
-        int dev, sms, per_sm;
-        if ((e = cudaGetDevice(&dev)) != cudaSuccess
-            || (e = cudaDeviceGetAttribute(
-                    &sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess
-            || (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                    &per_sm, kernel, kThreads, smem)) != cudaSuccess
-            || (e = cudaMemsetAsync(status, 0, (n_sb + 1) * 8,
-                                    (cudaStream_t)stream)) != cudaSuccess)
-            return (int)e;
-        fr.lag = (long long)sms * (per_sm > 0 ? per_sm : 1);
+        const cudaError_t e = cudaMemsetAsync(status, 0, (n_sb + 1) * 8,
+                                              (cudaStream_t)stream);
+        if (e != cudaSuccess) return (int)e;
     }
-    kernel<<<(unsigned)n_sb, kThreads, smem, (cudaStream_t)stream>>>(
+    const auto kernel = kernel_of(d.kind);
+    kernel<<<(unsigned)n_sb, kThreads, d.smem, (cudaStream_t)stream>>>(
         (const uint8_t*)data, nb, nb_last, bpp, level, (uint8_t*)out, row_w,
-        rec, zero_tail, (int*)totals, (int*)bsizes, (int*)fsizes,
-        (int*)plane_off, fr, geo);
+        rec, plane_off != nullptr, (int*)totals, (int*)bsizes, (int*)fsizes,
+        (int*)plane_off, fr, d.geo);
     return (int)cudaGetLastError();
 }
 

@@ -43,10 +43,17 @@ with one more row, the short superblock's whole blocks, placed as any
 other record; encode_short (one CTA) appends its partial segment there, in
 the frame. Its plain version is encode_column_frame_plain.
 
-launch_plan gives the kernel's shared-memory geometry for a bpp.
+launch_plan gives the kernel's shared-memory geometry for a bpp. Every K1
+launch goes through a launch descriptor (_descriptor), built once for each
+(device, instantiation, bpp, nb) and cached: the plan, the kernel's
+shared-memory attribute set on that device, and the frame mode's lag. A
+launch then reads the current stream and enqueues K1 (after the memset of
+the look-back state in frame mode), nothing else.
 """
 
 import ctypes
+import functools
+import threading
 
 import torch
 
@@ -60,24 +67,26 @@ from .compact import compact
 
 # launches of encode_superblocks and place_records below (chip_smoke.py
 # reads these): K1's modes (streams, records, frame) and place_records, and
-# the index mode (K1b), counted apart; launches_frame_tail counts the
-# frame-mode K1 launches that zeroed the frame's capacity and
-# launches_frame_placed those that placed their own records (both also
-# counted in launches); launches_short counts encode_short's
+# the index mode (K1b), counted apart; launches_frame_placed counts the
+# frame-mode K1 launches, each of which zeroes the frame's capacity and
+# places its own records (also counted in launches); launches_short counts
+# encode_short's; descriptor_builds counts the launch descriptors built
+# (the misses of their cache, one a new key: launches less it are hits)
 launches = 0
 launches_index = 0
-launches_frame_tail = 0
 launches_frame_placed = 0
 launches_short = 0
+descriptor_builds = 0
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _I = ctypes.c_int
 _ULL = ctypes.c_ulonglong
 _SIGNATURES = {
-    "stenos_encode_superblocks": [_P, _LL, _I, _I, _I, _I, _P, _LL, _I, _I,
+    "stenos_encode_prepare": [_P, _I],
+    "stenos_encode_superblocks": [_P, _P, _LL, _I, _I, _I, _I, _P, _LL, _I,
                                   _P, _P, _P, _P, _P, _LL, _I, _ULL, _ULL,
-                                  _P, _P, _I, _I, _I, _I, _I, _I, _P],
+                                  _P, _P, _P],
     "stenos_encode_short": [_P, _I, _I, _P, _P, _P, _P],
     "stenos_place_records": [_P, _LL, _P, _LL, _P, _LL, _ULL, _ULL, _I, _P,
                              _P],
@@ -130,6 +139,75 @@ def launch_plan(bpp: int, nb: int) -> dict:
     return {"tile_blocks": kb, "pad": pad, "stage_bytes": stage,
             "win_off": win_off, "codes_off": codes_off,
             "smem": codes_off + _up16(n_codes)}
+
+
+# K1's instantiations (kind in csrc/encode_blocks.cu's Descriptor): the
+# streams, records and index modes; frame mode; frame mode of a column
+_ROWS, _FRAME, _COLUMN = 0, 1, 2
+
+
+class _Descriptor(ctypes.Structure):
+    """csrc/encode_blocks.cu's Descriptor: an instantiation's launch plan
+    and, once prepared, its lag (the CTAs resident at once)."""
+    _fields_ = [("kind", _I), ("tile_blocks", _I), ("pad", _I),
+                ("stage_bytes", _I), ("win_off", _I), ("codes_off", _I),
+                ("smem", _I), ("lag", _LL)]
+
+
+# (device index, kind, bpp, nb) -> (descriptor, its address)
+_descriptors = {}
+_descriptors_lock = threading.Lock()
+
+
+def _prepare(desc, idx: int) -> None:
+    """stenos_encode_prepare on CUDA device idx: its instantiation's
+    shared-memory attribute set there, its lag filled in."""
+    lib = _cuda.load("encode_blocks", _SIGNATURES)
+    with torch.cuda.device(idx):
+        _cuda.check(lib.stenos_encode_prepare(ctypes.addressof(desc), idx),
+                    "encode_superblocks: prepare")
+
+
+def _descriptor(idx: int, kind: int, bpp: int, nb: int):
+    """The launch descriptor of instantiation kind for superblocks of nb
+    blocks of bpp bytes on CUDA device idx, built and prepared on its key's
+    first use (a miss, counted in descriptor_builds) and cached: (the
+    descriptor, its address). Threads that miss together build it once."""
+    global descriptor_builds
+    key = (idx, kind, bpp, nb)
+    with _descriptors_lock:
+        got = _descriptors.get(key)
+        if got is None:
+            plan = launch_plan(bpp, nb)
+            if plan["smem"] > SMEM_LIMIT:
+                raise ValueError(f"encode_superblocks: bpp {bpp} needs "
+                                 f"{plan['smem']} bytes of shared memory")
+            desc = _Descriptor(kind, plan["tile_blocks"], plan["pad"],
+                               plan["stage_bytes"], plan["win_off"],
+                               plan["codes_off"], plan["smem"], 0)
+            _prepare(desc, idx)
+            got = _descriptors[key] = (desc, ctypes.addressof(desc))
+            descriptor_builds += 1
+    return got
+
+
+SCRATCH_ALIGN = 256  # each region of the frame mode's scratch starts at one
+
+
+@functools.lru_cache(maxsize=256)
+def scratch_layout(n_sb: int, row_w: int, nb: int) -> tuple:
+    """Byte offsets of the frame mode's staging in its one scratch buffer:
+    rows (n_sb rows of row_w bytes), totals (n_sb int32), bsizes and fsizes
+    (n_sb x nb int32 each) and the look-back status (n_sb + 1 int64: a
+    word a superblock, then the ticket), each region at a multiple of
+    SCRATCH_ALIGN bytes (the status words want 8, the sizes 4). Returns
+    (rows, totals, bsizes, fsizes, status, the buffer's bytes)."""
+    offsets, end = [], 0
+    for n in (n_sb * row_w, 4 * n_sb, 4 * n_sb * nb, 4 * n_sb * nb,
+              8 * (n_sb + 1)):
+        offsets.append(end)
+        end += -(-n // SCRATCH_ALIGN) * SCRATCH_ALIGN
+    return (*offsets, end)
 
 
 def encode_superblocks_plain(data, bpp: int, block_level: int):
@@ -329,93 +407,113 @@ def _check_args(name, data, bpp, block_level):
                          f"{bpp}, block level {block_level}")
 
 
-def _count(index: bool):
-    global launches, launches_index
-    if index:
-        launches_index += 1
-    else:
-        launches += 1
+def _launch(data, kind: int, bpp: int, block_level: int, n_sb: int,
+            nb: int, nb_last: int, row_w: int, rec: int, rows: int,
+            totals: int, bsizes: int, fsizes: int, plane_off: int = 0,
+            frame: int = 0, cap: int = 0, header: bytes = b"",
+            length: int = 0, status: int = 0) -> None:
+    """One launch of encode_superblocks (K1) through the cached descriptor
+    of instantiation kind, on the current stream of data's device (read on
+    every call, so that a caller's torch.cuda.stream holds). rows ..
+    status are device addresses (0: none): plane_off only in index mode,
+    frame (cap bytes behind the header), length and status only in frame
+    mode."""
+    if data.data_ptr() % 16:  # the kernel copies 16-byte words
+        data = data.clone()
+    idx = data.get_device()
+    desc = (_descriptors.get((idx, kind, bpp, nb))
+            or _descriptor(idx, kind, bpp, nb))
+    h = header.ljust(16, b"\0")
+    lib = _cuda.load("encode_blocks", _SIGNATURES)
+    with trace.span("stn.k1.launch", data.device,
+                    nbytes=((n_sb - 1) * nb + nb_last) * 256 * bpp,
+                    superblocks=n_sb):
+        _cuda.check(lib.stenos_encode_superblocks(
+            desc[1], data.data_ptr(), n_sb, nb, nb_last, bpp, block_level,
+            rows, row_w, rec, totals, bsizes, fsizes, plane_off, frame, cap,
+            len(header), int.from_bytes(h[:8], "little"),
+            int.from_bytes(h[8:], "little"), length, status,
+            torch._C._cuda_getCurrentRawStream(idx)), "encode_superblocks")
 
 
 def _encode_rows(data, bpp: int, block_level: int, row_w: int, rec: int,
-                 zero_tail: bool, index: bool, frame=None, header=b"",
-                 column=None):
-    """One launch of encode_superblocks: each superblock's stream (rec 0) or
-    record (rec 4: [1, csize u24, stream]) at the start of its row of row_w
-    bytes, zeros after it when zero_tail. Frame mode (a frame tensor, rec
-    4): the same launch zeroes frame[len(header):], one slot of
-    (len(frame) - len(header)) / n_sb bytes a superblock, and writes the
-    header and every record back to back behind it (the rows stage them).
-    A column (a 1-D data, column = (n_sb, nb, nb_last)): n_sb - 1
-    superblocks of nb blocks, then the short superblock's nb_last whole
-    blocks. Returns (rows, stream totals, bsizes, fsizes, plane_off or
-    None, the frame's length 0-d int64 or None)."""
-    global launches_frame_tail, launches_frame_placed
-    lib = _cuda.load("encode_blocks", _SIGNATURES)
+                 index: bool):
+    """One launch of encode_superblocks in the streams (rec 0), records
+    (rec 4) or index mode (index, rec 4: zeros after each record up to
+    row_w, and the decode index): each superblock's stream or record [1,
+    csize u24, stream] at the start of its row of row_w bytes. Returns
+    (rows, stream totals, bsizes, fsizes, plane_off or None), each a tensor
+    of its own: the callers keep them, and apart."""
+    global launches, launches_index
+    n_sb, sbytes = data.shape
+    nb = sbytes // (256 * bpp)
     dev = data.device
-    if column is None:
-        n_sb, sbytes = data.shape
-        nb = nb_last = sbytes // (256 * bpp)
-    else:
-        n_sb, nb, nb_last = column
-    if data.data_ptr() % 16:  # the kernel copies 16-byte words
-        data = data.clone()
-    plan = launch_plan(bpp, nb)
-    if plan["smem"] > SMEM_LIMIT:
-        raise ValueError(f"encode_superblocks: bpp {bpp} needs "
-                         f"{plan['smem']} bytes of shared memory")
     rows = torch.empty((n_sb, row_w), dtype=torch.uint8, device=dev)
     totals = torch.empty(n_sb, dtype=torch.int32, device=dev)
     bsizes = torch.empty((n_sb, nb), dtype=torch.int32, device=dev)
     fsizes = torch.empty((n_sb, nb), dtype=torch.int32, device=dev)
     plane_off = (torch.empty((n_sb, bpp * nb), dtype=torch.int32, device=dev)
                  if index else None)
-    length = status = None
-    h = header.ljust(16, b"\0")
-    if frame is not None:
-        length = torch.empty((), dtype=torch.int64, device=dev)
-        # the look-back state and the ticket, zeroed by the launch's entry
-        status = torch.empty(n_sb + 1, dtype=torch.int64, device=dev)
-    with trace.span("stn.k1.launch", dev,
-                    nbytes=((n_sb - 1) * nb + nb_last) * 256 * bpp,
-                    superblocks=n_sb):
-        _cuda.check(lib.stenos_encode_superblocks(
-            data.data_ptr(), n_sb, nb, nb_last, bpp, block_level,
-            rows.data_ptr(), row_w, rec, int(zero_tail), totals.data_ptr(),
-            bsizes.data_ptr(), fsizes.data_ptr(),
-            plane_off.data_ptr() if index else None,
-            None if frame is None else frame.data_ptr(),
-            0 if frame is None else frame.numel(), len(header),
-            int.from_bytes(h[:8], "little"), int.from_bytes(h[8:], "little"),
-            None if frame is None else length.data_ptr(),
-            None if frame is None else status.data_ptr(),
-            plan["tile_blocks"], plan["pad"], plan["stage_bytes"],
-            plan["win_off"], plan["codes_off"], plan["smem"],
-            torch.cuda.current_stream(dev).cuda_stream), "encode_superblocks")
-    _count(index)
-    if frame is not None:
-        launches_frame_tail += 1
-        launches_frame_placed += 1
-    return rows, totals, bsizes, fsizes, plane_off, length
+    _launch(data, _ROWS, bpp, block_level, n_sb, nb, nb, row_w, rec,
+            rows.data_ptr(), totals.data_ptr(), bsizes.data_ptr(),
+            fsizes.data_ptr(), plane_off.data_ptr() if index else 0)
+    if index:
+        launches_index += 1
+    else:
+        launches += 1
+    return rows, totals, bsizes, fsizes, plane_off
 
 
 def _frame(data, bpp: int, block_level: int, header: bytes, slot: int,
            spare: int = 0, column=None):
-    """The frame mode's one K1 launch into a new frame of len(header) +
-    n_sb * slot bytes of capacity (slot at least a record bound) and spare
-    bytes more, zeroed apart. Returns (frame, stream totals, length)."""
+    """The device frame's launches: K1 in frame mode into a new frame of
+    len(header) + n_sb * slot bytes of capacity (slot at least a record
+    bound) and spare bytes more, zeroed apart. A column (a 1-D data, column
+    = (n_sb, nb, nb_last): n_sb - 1 superblocks of nb blocks, then the
+    short superblock's nb_last whole blocks) takes K1's column
+    instantiation, then, under the span stn.short_superblock, encode_short
+    for the bytes past those blocks, if any. K1's staging (rows of slot
+    bytes, the sizes and the look-back state) is one scratch buffer
+    (scratch_layout), freed to the stream after the launches. Returns
+    (frame, length 0-d int64)."""
+    global launches, launches_frame_placed, launches_short
     if len(header) > 16:
         raise ValueError("encode_superblocks_frame: header longer than 16")
-    n_sb = data.shape[0] if column is None else column[0]
-    frame = torch.empty(len(header) + n_sb * slot + spare, dtype=torch.uint8,
-                        device=data.device)
-    body = frame
+    if column is None:
+        kind = _FRAME
+        n_sb, sbytes = data.shape
+        nb = nb_last = sbytes // (256 * bpp)
+    else:
+        kind = _COLUMN
+        n_sb, nb, nb_last = column
+    dev = data.device
+    cap = len(header) + n_sb * slot
+    frame = torch.empty(cap + spare, dtype=torch.uint8, device=dev)
     if spare:
-        body = frame[:-spare]
-        frame[-spare:].zero_()
-    _, totals, _, _, _, length = _encode_rows(
-        data, bpp, block_level, slot, 4, False, False, body, header, column)
-    return frame, totals, length
+        frame[cap:].zero_()
+    length = torch.empty((), dtype=torch.int64, device=dev)
+    lay = scratch_layout(n_sb, slot, nb)
+    scratch = torch.empty(lay[5], dtype=torch.uint8, device=dev)
+    at = scratch.data_ptr()
+    _launch(data, kind, bpp, block_level, n_sb, nb, nb_last, slot, 4,
+            at + lay[0], at + lay[1], at + lay[2], at + lay[3], 0,
+            frame.data_ptr(), cap, header, length.data_ptr(), at + lay[4])
+    launches += 1
+    launches_frame_placed += 1
+    if column is not None:
+        rbytes = data.numel() - ((n_sb - 1) * nb + nb_last) * 256 * bpp
+        with trace.span("stn.short_superblock", dev, nbytes=rbytes,
+                        superblocks=1):
+            if rbytes:
+                lib = _cuda.load("encode_blocks", _SIGNATURES)
+                _cuda.check(lib.stenos_encode_short(
+                    data.data_ptr() + data.numel() - rbytes, rbytes, bpp,
+                    frame.data_ptr(), length.data_ptr(),
+                    at + lay[1] + 4 * (n_sb - 1),
+                    torch._C._cuda_getCurrentRawStream(data.get_device())),
+                    "encode_short")
+                launches_short += 1
+    return frame, length
 
 
 def encode_superblocks(data, bpp: int, block_level: int):
@@ -428,8 +526,7 @@ def encode_superblocks(data, bpp: int, block_level: int):
     _check_args("encode_superblocks", data, bpp, block_level)
     nb = data.shape[1] // (256 * bpp)
     rows, totals, bsizes, fsizes = _encode_rows(
-        data, bpp, block_level, record_bound(nb, bpp) - 4, 0, False,
-        False)[:4]
+        data, bpp, block_level, record_bound(nb, bpp) - 4, 0, False)[:4]
     # the streams as wide as the longest (one device-to-host read): a view
     # of the stream-bound rows; no reader looks past totals, so no zeros
     return rows[:, :max(int(totals.max()), 1)], totals, bsizes, fsizes
@@ -455,8 +552,7 @@ def encode_superblocks_index(data, bpp: int, block_level: int,
                                               rows_width)
     _check_args("encode_superblocks_index", data, bpp, block_level)
     rows, stream_totals, bsizes, fsizes, plane_off = _encode_rows(
-        data, bpp, block_level, rows_width or record_bound(nb, bpp), 4, True,
-        True)[:5]
+        data, bpp, block_level, rows_width or record_bound(nb, bpp), 4, True)
     totals = stream_totals + 4
     if rows_width is None:  # cut to the longest record: a copy
         rows = rows[:, :int(totals.max())].contiguous()
@@ -477,7 +573,7 @@ def encode_superblocks_records(data, bpp: int, block_level: int):
                                               record_bound(nb, bpp))[:4]
     _check_args("encode_superblocks_records", data, bpp, block_level)
     rows, totals, bsizes, fsizes = _encode_rows(
-        data, bpp, block_level, record_bound(nb, bpp), 4, False, False)[:4]
+        data, bpp, block_level, record_bound(nb, bpp), 4, False)[:4]
     return rows, totals + 4, bsizes, fsizes
 
 
@@ -488,6 +584,7 @@ def place_records(rows, totals, header: bytes, nb: int, bpp: int):
     (counted as K1): the frame of record rows made elsewhere (the gathered
     mesh frame). A CPU tensor takes place_records_plain. Returns (frame,
     length 0-d int64)."""
+    global launches
     if rows.device.type == "cpu":
         return place_records_plain(rows, totals, header, nb, bpp)
     if (rows.device.type != "cuda" or rows.dtype != torch.uint8
@@ -510,8 +607,9 @@ def place_records(rows, totals, header: bytes, nb: int, bpp: int):
             rows.data_ptr(), rows.shape[1], totals.data_ptr(), n_sb,
             frame.data_ptr(), frame.numel(), int.from_bytes(h[:8], "little"),
             int.from_bytes(h[8:], "little"), len(header), length.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream), "place_records")
-    _count(False)
+            torch._C._cuda_getCurrentRawStream(rows.get_device())),
+            "place_records")
+    launches += 1
     return frame, length
 
 
@@ -530,9 +628,8 @@ def encode_superblocks_frame(data, bpp: int, block_level: int,
                                               spare)
     _check_args("encode_superblocks_frame", data, bpp, block_level)
     nb = data.shape[1] // (256 * bpp)
-    frame, _, length = _frame(data, bpp, block_level, header,
-                              record_bound(nb, bpp), spare)
-    return frame, length
+    return _frame(data, bpp, block_level, header, record_bound(nb, bpp),
+                  spare)
 
 
 def encode_column_frame(data, bpp: int, block_level: int, header: bytes,
@@ -553,7 +650,6 @@ def encode_column_frame(data, bpp: int, block_level: int, header: bytes,
     record; encode_short (one CTA, under the span stn.short_superblock)
     appends the partial segment in the frame. A CPU tensor takes
     encode_column_frame_plain."""
-    global launches_short
     if data.device.type == "cpu":
         return encode_column_frame_plain(data, bpp, block_level, header, sb)
     nbytes = data.numel()
@@ -565,20 +661,8 @@ def encode_column_frame(data, bpp: int, block_level: int, header: bytes,
                          f"CUDA column of no whole number of {sb}-byte "
                          f"superblocks for bpp {bpp}, block level "
                          f"{block_level}")
-    dev = data.device
     n_full, r = divmod(nbytes, sb)
-    nbs, rbytes = divmod(r, 256 * bpp)
     nb = sb // (256 * bpp)
-    slot = column_slot(nb if n_full else 0, r, bpp)
-    frame, totals, length = _frame(data, bpp, block_level, header, slot,
-                                   column=(n_full + 1, nb, nbs))
-    with trace.span("stn.short_superblock", dev, nbytes=rbytes,
-                    superblocks=1):
-        if rbytes:
-            lib = _cuda.load("encode_blocks", _SIGNATURES)
-            _cuda.check(lib.stenos_encode_short(
-                data.data_ptr() + nbytes - rbytes, rbytes, bpp,
-                frame.data_ptr(), length.data_ptr(), totals[-1:].data_ptr(),
-                torch.cuda.current_stream(dev).cuda_stream), "encode_short")
-            launches_short += 1
-    return frame, length
+    return _frame(data, bpp, block_level, header,
+                  column_slot(nb if n_full else 0, r, bpp), column=(
+                      n_full + 1, nb, r // (256 * bpp)))
