@@ -10,7 +10,11 @@ encode_blocks_index (K1b), decode_rows (K2), its derive mode
 decode_rows_derive (K2b), huff_histogram (K3), huff_encode_streams (K4),
 huff_decode_streams (K5), fse_encode (K6), seq_decode (K7) and seq_exec (X1)
 -- against its plain torch version on the card, checks 32 MiB frames byte for byte against the
-numpy host path, then drives the main path -- compress / decompress of 512
+numpy host path, holds compress_frames_device (a batch of frames, one K1
+launch) against its plain version on a grid of bpp, frames and superblocks
+a frame and against compress_frame_device on the image-u16 cell's images,
+timing one batched call beside a call an image (phase_frames, with K1's
+registers and spills by ptxas), then drives the main path -- compress / decompress of 512
 MiB of sorted int32 (bytesoftype 4) at levels 1 and 2, each decompress
 exactly one K2 launch a 64 MiB batch, then a second decompress split by
 step (host pass, copies, K2, copy into the output) -- and the
@@ -73,6 +77,7 @@ import importlib.util
 import itertools
 import json
 import os
+import re
 import socket
 import subprocess
 import sys
@@ -95,6 +100,7 @@ from stenos_tpu_torch.host import staging
 from stenos_tpu_torch.host import zstd as zstd_host
 from stenos_tpu_torch.device_container import record_blocks
 from stenos_tpu_torch.engine import (CHUNK_BYTES, compress_frame_device,
+                                     compress_frames_device,
                                      frame_header_bytes, roundtrip_device)
 from stenos_tpu_torch.entropy import (device_decode, fse_kernel,
                                       huff_decode_kernel, huff_kernel,
@@ -105,7 +111,7 @@ from stenos_tpu_torch.entropy.huffman import luts_batch
 from stenos_tpu_torch.entropy.match_device import match_candidates
 from stenos_tpu_torch.entropy.sequences import FRESH_REPS, encode_sequences
 from stenos_tpu_torch.ops import _cuda, decode_kernel, encode_kernel
-from stenos_tpu_torch.ops.encode_kernel import record_bound
+from stenos_tpu_torch.ops.encode_kernel import frames_stride, record_bound
 from stenos_tpu_torch.utils import trace
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -143,6 +149,13 @@ DIRTY_SMALL = 64  # 2 MiB segments of small blocks dirty_block fills
 # one wave of K1 (132 SMs x 4 resident CTAs = 528) and well past it
 FOLD_BPP = (1, 2, 3, 4, 8, 16)
 FOLD_N_SB = (1, 2, 527, 528, 529, 4096, 16384)
+# the batches of frames' grid (phase_frames): bpp, frames a batch, and
+# superblocks a frame (17 x 32 frames reach past one wave of K1)
+FRAMES_BPP = (1, 2, 4, 8, 16)
+FRAMES_F = (1, 2, 32)
+FRAMES_PER = (1, 17, 64)
+IMAGES = 32  # the image-u16 cell's batch: 32 images of 8 MiB
+IMAGE_BYTES = 8 * MIB
 
 
 def load_tool(name):
@@ -301,9 +314,11 @@ KERNEL_COUNTS = ((encode_kernel, "launches", "encode_blocks"),
                  (seq_exec, "launches", "seq_exec"))
 # the kernels' launches and, counted apart, the frame-mode K1 launches
 # (each zeroes a frame's capacity and places its own records; also in
+# encode_blocks), the launches for a batch of frames (also in
 # encode_blocks) and encode_short's
 COUNTS = KERNEL_COUNTS + ((encode_kernel, "launches_frame_placed",
                            "frame_placed"),
+                          (encode_kernel, "launches_frames", "frames"),
                           (encode_kernel, "launches_short", "encode_short"))
 SOURCES = ("encode_blocks", "decode_rows", "huff_encode", "huff_decode",
            "fse_encode", "seq_decode", "seq_exec")
@@ -633,7 +648,7 @@ def fse_grid(rng, dev, record):
         "sequences (-2, the wrapper raises)")
 
 
-def phase_frames(dev):
+def phase_host_frames(dev):
     raw = sorted_int32(32 * MIB, seed=7)
     for level in (1, 2):
         want = fr.compress(raw, 4, level, engine=None)
@@ -643,6 +658,193 @@ def phase_frames(dev):
         check(np.array_equal(back, raw), f"32 MiB level {level}: round trip")
     log("32 MiB sorted int32, levels 1 and 2: frames == host path, "
         "round trip ok")
+
+
+def image_u16(dev, n, nbytes=IMAGE_BYTES, seed=2**31 + 29):
+    """n images of the benchmark's image-u16 configuration, made on the
+    card by its own generator: (n, nbytes) uint8."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "portbench", "configs", "image-u16.py")
+    spec = importlib.util.spec_from_file_location("image_u16_gen", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return torch.stack([mod.make(seed, i, nbytes, dev) for i in range(n)])
+
+
+def plain_frames(x, bpp, hdr, n_frames):
+    """The batch of frames of (n_frames * per, sb) x by the plain version
+    on the card (its records in slices; each frame in its row behind the
+    header, zeros to the row's stride): (out, [lengths])."""
+    nb = x.shape[1] // (256 * bpp)
+    per = x.shape[0] // n_frames
+    rows, totals = in_chunks(
+        lambda a: encode_kernel.encode_superblocks_index_plain(
+            a, bpp, 2, record_bound(nb, bpp))[:2], (x,))
+    out = torch.zeros((n_frames, frames_stride(per, nb, bpp, len(hdr))),
+                      dtype=torch.uint8, device=x.device)
+    keep = torch.arange(rows.shape[1], device=x.device)
+    lengths = []
+    for f in range(n_frames):
+        r, t = rows[f * per : (f + 1) * per], totals[f * per : (f + 1) * per]
+        body = r[keep < t[:, None]]
+        out[f, : len(hdr)] = torch.tensor(list(hdr), dtype=torch.uint8)
+        out[f, len(hdr) : len(hdr) + body.numel()] = body
+        lengths.append(len(hdr) + body.numel())
+    return out, lengths
+
+
+def k1_ptxas():
+    """ptxas's report of encode_blocks: {function: {"registers", "stores",
+    "loads"}} for each encode_superblocks instantiation and each function
+    of K1's look-back and placement that was not inlined."""
+    res, entry, props = {}, None, None
+
+    def ours(name):
+        return (res.setdefault(name, {}) if re.search(
+            "encode_superblocks|look_back|place", name) else None)
+
+    with open(os.path.join(_cuda.BUILD_DIR, "encode_blocks.ptxas.txt")) as f:
+        for ln in f:
+            name = (ln.split("'")[1] if "'" in ln
+                    else ln.split()[-1].strip())
+            used = re.search(r"Used (\d+) registers", ln)
+            if "Compiling entry function" in ln:
+                entry = ours(name)
+            elif "Function properties for" in ln:
+                props = ours(name)
+            elif props is not None and "spill stores" in ln:
+                for n, k in re.findall(r"(\d+) bytes spill (stores|loads)",
+                                       ln):
+                    props[k] = int(n)
+            elif entry is not None and used:
+                entry["registers"] = int(used.group(1))
+    return res
+
+
+def phase_frames(dev):
+    """compress_frames_device: a batch of frames in one launch of K1's
+    batch instantiation. The grid FRAMES_BPP x FRAMES_F frames x FRAMES_PER
+    superblocks a frame (fold_data) against the plain version on the card,
+    byte for byte over each row's stride, on a dirtied block: one K1 launch
+    (counted in encode_blocks and frames) a call, frames_batched counting
+    frames; F = 1 against compress_frame_device. Then the image-u16 cell's
+    batch (32 images of 8 MiB, its own generator): each row equals
+    compress_frame_device's frame of its image, 50 calls back to back over
+    two batches equal each batch's first, the span stn.compress_frames_device
+    has events and stn.k1.launch as its child, and 32 compress_frame_device
+    calls (one an image) and one compress_frames_device call are timed in
+    turns by CUDA events (as issued back to back, and queued behind a sleep
+    kernel: the card's time alone). K1's four instantiations: 64 registers,
+    no spills (ptxas)."""
+    res = {"grid": 0}
+    sb = 131072
+    for bpp in FRAMES_BPP:
+        nb = sb // (256 * bpp)
+        for n_frames in FRAMES_F:
+            for per in FRAMES_PER:
+                what = ("frames", bpp, n_frames, per)
+                x = fold_data(dev, bpp, n_frames * per, sb)
+                hdr = frame_header_bytes(per * sb, sb, bpp, 1)
+                stride = frames_stride(per, nb, bpp, len(hdr))
+                ptr = dirty_block(n_frames * stride, dev)
+                reset_counts()
+                b0 = eng.frames_batched
+                out, lengths = compress_frames_device(
+                    x.view(n_frames, per * sb), bpp, 1)
+                c = read_counts()
+                check((c["encode_blocks"], c["frames"], c["frame_placed"])
+                      == (1, 1, 0) and eng.frames_batched - b0 == n_frames,
+                      (*what, "launches", c))
+                check(out.shape == (n_frames, stride)
+                      and (ptr is None or out.data_ptr() == ptr),
+                      (*what, "the batch did not take the dirtied block"))
+                want, n = plain_frames(x, bpp, hdr, n_frames)
+                check(lengths.tolist() == n and torch.equal(out, want),
+                      (*what, "differs from the plain version"))
+                if n_frames == 1:
+                    one, n1 = compress_frame_device(x, bpp, 1)
+                    check(int(n1) == n[0]
+                          and torch.equal(out[0, : one.numel()], one),
+                          (*what, "differs from compress_frame_device"))
+                del x, out, want
+                res["grid"] += 1
+    log(f"batches of frames == the plain version over each row's stride, "
+        f"on dirtied blocks: bpp {FRAMES_BPP} x {FRAMES_F} frames x "
+        f"{FRAMES_PER} superblocks a frame, one K1 launch a batch")
+
+    imgs = [image_u16(dev, IMAGES, seed=2**31 + 29 + k) for k in range(2)]
+    per = IMAGE_BYTES // sb
+    firsts = []
+    for batch in imgs:
+        out, lengths = compress_frames_device(batch, 2, 1)
+        n = lengths.tolist()
+        for i in range(IMAGES):
+            one, n1 = compress_frame_device(batch[i].view(per, sb), 2, 1)
+            check(int(n1) == n[i] and torch.equal(out[i, : one.numel()], one)
+                  and not out[i, one.numel():].any(),
+                  ("image", i, "differs from compress_frame_device"))
+        firsts.append((out, n))
+    res["ratio"] = sum(firsts[0][1]) / (IMAGES * IMAGE_BYTES)
+    torch.cuda.synchronize()
+    outs = [compress_frames_device(imgs[i % 2], 2, 1) for i in range(50)]
+    torch.cuda.synchronize()
+    for i, (out, lengths) in enumerate(outs):
+        check(lengths.tolist() == firsts[i % 2][1]
+              and torch.equal(out, firsts[i % 2][0]),
+              ("back to back", i, "differs from its batch's first"))
+    del outs
+    log(f"{IMAGES} image-u16 images of 8 MiB: each row == "
+        f"compress_frame_device of its image (ratio {res['ratio']:.4f}); "
+        "50 batches back to back == each batch's first")
+
+    eng.timing = []
+    compress_frames_device(imgs[0], 2, 1)
+    torch.cuda.synchronize()
+    spans = trace.records()
+    top_ms = trace.report()["spans"]
+    eng.timing = None
+    top = [s for s in spans if s.name == "stn.compress_frames_device"]
+    k1 = [s for s in spans if s.name == "stn.k1.launch"]
+    check(len(top) == 1 and len(k1) == 1 and k1[0].parent == top[0].id
+          and top[0].frames == IMAGES and top[0].events is not None,
+          "the span stn.compress_frames_device, its events and its K1 child")
+    res["span"] = {
+        "device_ms": top_ms["stn.compress_frames_device"]["device_ms"],
+        "k1_device_ms": top_ms["stn.k1.launch"]["device_ms"],
+        "host_ms": top_ms["stn.compress_frames_device"]["host_ms"]}
+
+    batch = imgs[0]
+    fns = {"per_image": lambda: [compress_frame_device(
+               batch[i].view(per, sb), 2, 1) for i in range(IMAGES)],
+           "batched": lambda: compress_frames_device(batch, 2, 1)}
+    times = {k: {"ms": [], "queued_ms": []} for k in fns}
+    for who in ("per_image", "batched", "batched", "per_image") * 2:
+        times[who]["ms"].append(cuda_ms(fns[who], 20))
+        times[who]["queued_ms"].append(queued_ms(fns[who], 20))
+    res["times"] = {k: {m: sorted(v)[len(v) // 2] for m, v in t.items()}
+                    | {"all_" + m: v for m, v in t.items()}
+                    for k, t in times.items()}
+    for k, t in res["times"].items():
+        t["ms_per_image"] = t["ms"] / IMAGES
+        t["queued_ms_per_image"] = t["queued_ms"] / IMAGES
+    log(f"{IMAGES} images of 8 MiB, ms a batch (as issued / queued): one "
+        f"call an image {res['times']['per_image']['ms']:.4f} / "
+        f"{res['times']['per_image']['queued_ms']:.4f}, one batched call "
+        f"{res['times']['batched']['ms']:.4f} / "
+        f"{res['times']['batched']['queued_ms']:.4f}")
+    del imgs, batch, fns, firsts
+
+    res["ptxas"] = k1_ptxas()
+    entries = {k: v for k, v in res["ptxas"].items()
+               if "encode_superblocks" in k}
+    log(f"ptxas K1: {res['ptxas']}")
+    check(len(entries) == 4, ("K1 instantiations in ptxas", entries))
+    for name, v in res["ptxas"].items():
+        check(v.get("stores", 0) == 0 and v.get("loads", 0) == 0
+              and (name not in entries or v.get("registers", 99) <= 64),
+              ("K1 registers or spills", name, v))
+    torch.cuda.empty_cache()
+    return res
 
 
 def phase_headline(dev):
@@ -3037,7 +3239,9 @@ def main():
     card = phase_build()
     err_small = phase_kernels(dev)
     log(f"  [{time.perf_counter() - t0:.1f} s]")
-    phase_frames(dev)
+    phase_host_frames(dev)
+    log(f"  [{time.perf_counter() - t0:.1f} s]")
+    colres = {"frames": phase_frames(dev)}
     log(f"  [{time.perf_counter() - t0:.1f} s]")
     raw, res = phase_headline(dev)
     log(f"  [{time.perf_counter() - t0:.1f} s]")
@@ -3055,7 +3259,7 @@ def main():
         err[name] = max(err[name], e)
     dres, times_dev, err_dev = phase_device(dev, raw, res[1]["frame"])
     log(f"  [{time.perf_counter() - t0:.1f} s]")
-    colres = phase_column(dev)
+    colres.update(phase_column(dev))
     log(f"  [{time.perf_counter() - t0:.1f} s]")
     colres["fold"] = phase_fold(dev)
     log(f"  [{time.perf_counter() - t0:.1f} s]")

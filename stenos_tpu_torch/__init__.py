@@ -24,7 +24,8 @@ gets the single-device frame or array.
 `DeviceCompressedArray` keeps an array compressed in device memory, with an
 optional Huffman entropy stage (entropy=True), and decodes slabs on demand; `engine.roundtrip_device` and
 `engine.compress_frame_device` are the device-resident round trip and frame
-compress.
+compress, and `engine.compress_frames_device` compresses a batch of images
+on the card, a frame each, in one launch.
 """
 
 from .constants import compress_bound, super_block_size

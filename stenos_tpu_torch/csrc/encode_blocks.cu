@@ -83,6 +83,14 @@
 //   writes the header and the frame length. The device frame does not run
 //   it (K1's frame mode places its own records); it builds a frame from
 //   rows gathered from several cards.
+// A batch of frames (kBatch, one frame an image): the grid runs over the F x
+//   per superblocks of F frames of per superblocks each, frame f in row f of
+//   stride bytes. The ticket runs over the whole grid; superblock g belongs
+//   to frame f = g / per as its superblock j = g % per: it zeroes slot j of
+//   row f (the last slot up to the row's end), the first writes row f's
+//   header, a look-back stops at its frame's first superblock (whose
+//   inclusive prefix is its own size), and the placer of a frame's last
+//   record writes that frame's length. One launch for the whole batch.
 // A column (a 1-D array of any length) ends in a short superblock: K1's
 //   last CTA encodes its whole blocks (nb_last of them) into the last row
 //   and places that record as any other; encode_short (one CTA) then
@@ -414,6 +422,9 @@ __device__ __forceinline__ void zero_fill(uint8_t* a, uint8_t* b, int t) {
 // the capacity cap behind an hlen-byte header (h0, h1 little-endian, hlen
 // <= 16), the length, the look-back status (n_sb words, then the ticket
 // count), zeroed before the launch, and the lag (the CTAs resident at once).
+// A batch of frames (kBatch) reads per, the superblocks a frame, and
+// stride, the bytes from one frame's row to the next (at least cap); cap is
+// then a frame's capacity and length holds a length a frame.
 struct Frame {
     uint8_t* frame;
     long long cap;
@@ -422,6 +433,8 @@ struct Frame {
     unsigned long long* status;
     long long lag;
     int hlen;
+    int per;
+    long long stride;
 };
 
 constexpr unsigned long long kSize = 1ull << 62;    // a record's size
@@ -441,21 +454,21 @@ __device__ __forceinline__ void store_gpu(unsigned long long* p,
                  : "memory");
 }
 
-// One warp: waits for record j's size, sums the records before j by a
-// decoupled look-back over status (back to the nearest inclusive prefix),
-// fences its reads, publishes j's inclusive prefix and returns (exclusive
-// prefix, size) on every lane.
+// One warp: waits for record j's size, sums the records lo..j-1 before j
+// by a decoupled look-back over status (back to the nearest inclusive
+// prefix; lo is the first record of j's frame), fences its reads, publishes
+// j's inclusive prefix and returns (exclusive prefix, size) on every lane.
 __device__ longlong2 look_back(unsigned long long* status, long long j,
-                               int lane) {
+                               long long lo, int lane) {
     unsigned long long v;
     while (!((v = load_gpu(status + j)) >> 62)) __nanosleep(64);
     const long long n = (long long)(v & kValue);
     long long before = 0;
-    for (long long w = j - 1; w >= 0; w -= 32) {
+    for (long long w = j - 1; w >= lo; w -= 32) {
         const long long i = w - lane;
-        // before record 0: an inclusive prefix of 0
+        // before the frame's first record: an inclusive prefix of 0
         while (!__all_sync(kFull,
-                           (v = i >= 0 ? load_gpu(status + i) : kPrefix)
+                           (v = i >= lo ? load_gpu(status + i) : kPrefix)
                            >> 62))
             __nanosleep(64);
         const unsigned pre = __ballot_sync(kFull, (v >> 62) == 2);
@@ -473,18 +486,30 @@ __device__ longlong2 look_back(unsigned long long* status, long long j,
 }
 
 // The whole CTA places record j (rows row j, its bytes fenced before its
-// size was published) behind the frame header; the one of the last
-// superblock writes the frame length.
+// size was published) behind its frame's header; the one of a frame's last
+// superblock writes that frame's length. A batch (kBatch): record j is
+// record j % per of frame j / per, in the frame's row.
+template <bool kBatch>
 __device__ void place(const Frame& fr, const uint8_t* out, long long row_w,
                       long long j, int t, longlong2& s_rec) {
     if (t < 32) {
-        const longlong2 r = look_back(fr.status, j, t);
+        const int f = kBatch ? (int)j / fr.per : 0;
+        const long long lo = kBatch ? (long long)f * fr.per : 0;
+        longlong2 r = look_back(fr.status, j, lo, t);
+        if constexpr (kBatch) {
+            // the frame's length here, and the record's place from the
+            // first frame's start in s_rec: the copy holds no more
+            if (t == 0 && j + 1 == lo + fr.per)
+                fr.length[f] = fr.hlen + r.x + r.y;
+            r.x += f * fr.stride;
+        }
         if (t == 0) s_rec = r;
     }
     __syncthreads();
     const longlong2 r = s_rec;
     copy_bytes<4>(fr.frame + fr.hlen + r.x, out + j * row_w, r.y, t);
-    if (t == 0 && j + 1 == gridDim.x) *fr.length = fr.hlen + r.x + r.y;
+    if (!kBatch && t == 0 && j + 1 == gridDim.x)
+        *fr.length = fr.hlen + r.x + r.y;
     __syncthreads();  // s_rec is rewritten by the next record
 }
 
@@ -504,8 +529,10 @@ struct Geometry {
 // the column's one extra live count spills. Frame mode (kFrame, fr): CTA s
 // takes superblock s by ticket, first zeroes slot s of the frame's
 // capacity behind the header, [hlen + s*w, hlen + (s+1)*w) with w = (cap -
-// hlen) / n_sb, and at its end places its record (place_own).
-template <bool kColumn, bool kFrame>
+// hlen) / n_sb, and at its end places its record (place_own). A batch of
+// frames (kBatch, with kFrame; not a column) is the frame mode's own
+// instantiation, so that the frame mode runs the code it ran before it.
+template <bool kColumn, bool kFrame, bool kBatch = false>
 __global__ void __launch_bounds__(kThreads, 4)
 encode_superblocks(const uint8_t* __restrict__ data, int nb, int nb_last,
                    int bpp, int level, uint8_t* __restrict__ out,
@@ -558,12 +585,18 @@ encode_superblocks(const uint8_t* __restrict__ data, int nb, int nb_last,
         ++step;
     };
 
-    if (kFrame) {  // slot sb of the capacity behind the header
-        const long long w = (fr.cap - fr.hlen) / gridDim.x;
-        zero_fill(fr.frame + fr.hlen + sb * w,
-                  fr.frame + fr.hlen + (sb + 1) * w, t);
-        if (sb == 0 && t < fr.hlen)
-            fr.frame[t] = (uint8_t)(
+    if (kFrame) {  // slot j of its frame's capacity behind the header
+        const long long per = kBatch ? fr.per : (long long)gridDim.x;
+        const int f = kBatch ? (int)sb / fr.per : 0;
+        const long long j = sb - (long long)f * per;
+        uint8_t* frame = kBatch ? fr.frame + f * fr.stride : fr.frame;
+        const long long w = (fr.cap - fr.hlen) / per;
+        // a batch's rows: the last slot runs to the row's end
+        zero_fill(frame + fr.hlen + j * w,
+                  kBatch && j + 1 == per ? frame + fr.stride
+                                         : frame + fr.hlen + (j + 1) * w, t);
+        if (j == 0 && t < fr.hlen)
+            frame[t] = (uint8_t)(
                 (t < 8 ? fr.h0 >> (8 * t) : fr.h1 >> (8 * (t - 8))) & 255);
     }
 
@@ -704,8 +737,10 @@ encode_superblocks(const uint8_t* __restrict__ data, int nb, int nb_last,
         if (t == 0) store_gpu(fr.status + sb, kSize | (rec + run));
         // the record a lag behind, whose predecessors are done by now; the
         // last lag CTAs also place their own
-        if (sb >= fr.lag) place(fr, out, row_w, sb - fr.lag, t, s_rec);
-        if (sb + fr.lag >= gridDim.x) place(fr, out, row_w, sb, t, s_rec);
+        if (sb >= fr.lag)
+            place<kBatch>(fr, out, row_w, sb - fr.lag, t, s_rec);
+        if (sb + fr.lag >= gridDim.x)
+            place<kBatch>(fr, out, row_w, sb, t, s_rec);
     }
 }
 
@@ -855,9 +890,9 @@ namespace {
 // A launch descriptor (ops/encode_kernel.py _Descriptor), built once for
 // each (device, instantiation, bpp, nb): the instantiation (kind 0: the
 // streams, records and index modes; 1: frame mode; 2: frame mode of a
-// column), the host's launch plan (ops/encode_kernel.py launch_plan), smem
-// its shared-memory bytes, and lag, the CTAs resident at once
-// (stenos_encode_prepare).
+// column; 3: frame mode of a batch of frames), the host's launch plan
+// (ops/encode_kernel.py launch_plan), smem its shared-memory bytes, and lag,
+// the CTAs resident at once (stenos_encode_prepare).
 struct Descriptor {
     int kind;
     Geometry geo;
@@ -868,7 +903,8 @@ struct Descriptor {
 auto kernel_of(int kind) {
     return kind == 0 ? encode_superblocks<false, false>
            : kind == 1 ? encode_superblocks<false, true>
-                       : encode_superblocks<true, true>;
+           : kind == 2 ? encode_superblocks<true, true>
+                       : encode_superblocks<false, true, true>;
 }
 
 }  // namespace
@@ -907,16 +943,19 @@ extern "C" int stenos_encode_prepare(void* desc, int device) {
 // in index mode, which also zeroes each row past its record; frame (cap
 // bytes behind an hlen-byte header h0, h1; length; status, n_sb + 1 words
 // of scratch) null except in frame mode, where status is zeroed on the
-// stream first; nb_last < nb only for a column.
+// stream first; nb_last < nb only for a column; per and stride are read by
+// a batch of frames only (n_sb / per frames of per superblocks, a row of
+// stride bytes and a length each).
 extern "C" int stenos_encode_superblocks(
         const void* desc, const void* data, long long n_sb, int nb,
         int nb_last, int bpp, int level, void* out, long long row_w, int rec,
         void* totals, void* bsizes, void* fsizes, void* plane_off,
         void* frame, long long cap, int hlen, unsigned long long h0,
-        unsigned long long h1, void* length, void* status, void* stream) {
+        unsigned long long h1, void* length, void* status, int per,
+        long long stride, void* stream) {
     const Descriptor& d = *(const Descriptor*)desc;
     const Frame fr{(uint8_t*)frame, cap, h0, h1, (long long*)length,
-                   (unsigned long long*)status, d.lag, hlen};
+                   (unsigned long long*)status, d.lag, hlen, per, stride};
     if (frame) {
         const cudaError_t e = cudaMemsetAsync(status, 0, (n_sb + 1) * 8,
                                               (cudaStream_t)stream);

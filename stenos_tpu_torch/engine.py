@@ -33,6 +33,9 @@ and two device-resident paths with no host byte traffic:
                          in one launch; a 1-D column of any length through
                          encode_column_frame (a short last superblock, its
                          partial segment by encode_short).
+  compress_frames_device encode_superblocks_frames: a batch of images of
+                         equal length, a frame each, one a row, in one
+                         launch.
 
 Counterpart of stenos_tpu/engine_jax.py (JaxEngine, decompress_frame_batched,
 roundtrip_device, compress_frame_device_jit).
@@ -55,6 +58,7 @@ from .constants import (BLOCK_LZ, BLOCK_PARTIAL, ERROR_DST_OVERFLOW,
 from .ops.decode_kernel import decode_rows, decode_rows_derive
 from .ops.encode_kernel import (encode_column_frame, encode_superblocks,
                                 encode_superblocks_frame,
+                                encode_superblocks_frames,
                                 encode_superblocks_index, record_bound)
 from .host import staging
 from .utils import trace
@@ -538,6 +542,56 @@ def compress_frame_device(data, bpp: int, level: int):
             return encode_column_frame(data, bpp, 2, header, sb)
         short_superblocks_small += 1
         return _small_tail_frame(data, bpp, level, header, sb)
+
+
+# frames written by compress_frames_device (chip_smoke.py and the tests
+# read it)
+frames_batched = 0
+
+
+def compress_frames_device(frames, bpp: int, level: int):
+    """Device-resident compression of a batch of images, a frame each:
+    frames is a contiguous (F, n) uint8 tensor, F images of n bytes, and
+    frame f is compress_frame_device's frame of image f (every superblock
+    a METHOD_BLOCK record at block level 2, no LZ patch-up, no COPY): the
+    host path's frame of that image alone at level 1 where that frame has
+    no LZ block and no COPY record. n must be a whole number of the level's
+    superblocks for an n-byte frame; a short last superblock is not taken
+    (ValueError).
+
+    One launch of K1 for the whole batch (ops/encode_kernel.py
+    encode_superblocks_frames), no host synchronisation. Returns (out (F,
+    stride) uint8, lengths (F,) int64 tensor on the device): frame f is
+    out[f, :lengths[f]], zeros follow; stride is the header's length plus
+    n / sb record bounds, rounded up to a multiple of 16. F = 1 gives
+    compress_frame_device's frame of frames[0]."""
+    global frames_batched
+    from .frame import StenosError, _superblock_params
+
+    if (frames.dim() != 2 or frames.dtype != torch.uint8
+            or not frames.is_contiguous() or 0 in frames.shape or bpp < 1):
+        raise ValueError("compress_frames_device: need a contiguous, "
+                         "non-empty (F, n) uint8 tensor and bytesoftype "
+                         "1 or more")
+    n_frames, n = frames.shape
+    try:
+        sb = _superblock_params(bpp, n, level)[0]
+    except StenosError as e:
+        raise ValueError(f"compress_frames_device: no superblock for "
+                         f"bytesoftype {bpp}, level {level}") from e
+    if n % sb:
+        raise ValueError(f"compress_frames_device: a frame of {n} bytes is "
+                         f"no whole number of the level's {sb}-byte "
+                         "superblocks")
+    n_sb = n // sb
+    with trace.span("stn.compress_frames_device", frames.device,
+                    nbytes=n_frames * n, superblocks=n_frames * n_sb,
+                    frames=n_frames):
+        out = encode_superblocks_frames(
+            frames.view(n_frames * n_sb, sb), bpp, 2,
+            frame_header_bytes(n, sb, bpp, level), n_frames)
+    frames_batched += n_frames
+    return out
 
 
 def _small_tail_frame(data, bpp: int, level: int, header: bytes, sb: int):

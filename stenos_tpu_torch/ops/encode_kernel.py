@@ -37,6 +37,12 @@ encode_superblocks_frame_plain. place_records(rows, totals, header, nb,
 bpp) builds the same frame from record rows made elsewhere (the gathered
 mesh frame), in a launch of its own that zeroes the tail too.
 
+encode_superblocks_frames(data, bpp, block_level, header, n_frames) is a
+batch of such frames, one a row, in one launch of the same kernel: the
+superblocks of n_frames frames of equal length, each frame's records
+behind its own header in its own row (the look-back stops at the frame's
+first superblock). Its plain version is encode_superblocks_frames_plain.
+
 encode_column_frame(data, bpp, block_level, header, sb) is the frame of a
 1-D column whose length is no whole number of superblocks: K1's frame mode
 with one more row, the short superblock's whole blocks, placed as any
@@ -69,12 +75,15 @@ from .compact import compact
 # reads these): K1's modes (streams, records, frame) and place_records, and
 # the index mode (K1b), counted apart; launches_frame_placed counts the
 # frame-mode K1 launches, each of which zeroes the frame's capacity and
-# places its own records (also counted in launches); launches_short counts
-# encode_short's; descriptor_builds counts the launch descriptors built
-# (the misses of their cache, one a new key: launches less it are hits)
+# places its own records (also counted in launches); launches_frames
+# counts the launches for a batch of frames (also counted in launches, not
+# in launches_frame_placed); launches_short counts encode_short's;
+# descriptor_builds counts the launch descriptors built (the misses of
+# their cache, one a new key: launches less it are hits)
 launches = 0
 launches_index = 0
 launches_frame_placed = 0
+launches_frames = 0
 launches_short = 0
 descriptor_builds = 0
 
@@ -86,7 +95,7 @@ _SIGNATURES = {
     "stenos_encode_prepare": [_P, _I],
     "stenos_encode_superblocks": [_P, _P, _LL, _I, _I, _I, _I, _P, _LL, _I,
                                   _P, _P, _P, _P, _P, _LL, _I, _ULL, _ULL,
-                                  _P, _P, _P],
+                                  _P, _P, _I, _LL, _P],
     "stenos_encode_short": [_P, _I, _I, _P, _P, _P, _P],
     "stenos_place_records": [_P, _LL, _P, _LL, _P, _LL, _ULL, _ULL, _I, _P,
                              _P],
@@ -142,8 +151,9 @@ def launch_plan(bpp: int, nb: int) -> dict:
 
 
 # K1's instantiations (kind in csrc/encode_blocks.cu's Descriptor): the
-# streams, records and index modes; frame mode; frame mode of a column
-_ROWS, _FRAME, _COLUMN = 0, 1, 2
+# streams, records and index modes; frame mode; frame mode of a column;
+# frame mode of a batch of frames
+_ROWS, _FRAME, _COLUMN, _FRAMES = 0, 1, 2, 3
 
 
 class _Descriptor(ctypes.Structure):
@@ -331,6 +341,37 @@ def place_records_plain(rows, totals, header: bytes, nb: int, bpp: int):
     return frame, (totals + 4).sum(dtype=torch.int64) + len(header)
 
 
+def frames_stride(n_sb: int, nb: int, bpp: int, hlen: int) -> int:
+    """Bytes of a batch's row for frames of n_sb superblocks of nb blocks
+    behind an hlen-byte header: the frame's capacity, hlen + n_sb *
+    record_bound(nb, bpp), rounded up to a multiple of 16."""
+    return _up16(hlen + n_sb * record_bound(nb, bpp))
+
+
+def encode_superblocks_frames_plain(data, bpp: int, block_level: int,
+                                    header: bytes, n_frames: int):
+    """Plain torch version of encode_superblocks_frames: the index mode's
+    records of every superblock, then each frame's placed behind the header
+    by place_records_plain into its row (under the span of the one launch
+    it stands for)."""
+    per = data.shape[0] // n_frames
+    nb = data.shape[1] // (256 * bpp)
+    stride = frames_stride(per, nb, bpp, len(header))
+    out = torch.zeros((n_frames, stride), dtype=torch.uint8,
+                      device=data.device)
+    lengths = torch.empty(n_frames, dtype=torch.int64, device=data.device)
+    with trace.span("stn.k1.launch", nbytes=data.numel(),
+                    superblocks=data.shape[0]):
+        rows, totals = encode_superblocks_index_plain(data, bpp,
+                                                      block_level)[:2]
+        for f in range(n_frames):
+            frame, lengths[f] = place_records_plain(
+                rows[f * per : (f + 1) * per],
+                totals[f * per : (f + 1) * per] - 4, header, nb, bpp)
+            out[f, : frame.numel()] = frame
+    return out, lengths
+
+
 def encode_superblocks_frame_plain(data, bpp: int, block_level: int,
                                    header: bytes, spare: int = 0):
     """Plain torch version of the frame layout: the index mode's records
@@ -411,13 +452,15 @@ def _launch(data, kind: int, bpp: int, block_level: int, n_sb: int,
             nb: int, nb_last: int, row_w: int, rec: int, rows: int,
             totals: int, bsizes: int, fsizes: int, plane_off: int = 0,
             frame: int = 0, cap: int = 0, header: bytes = b"",
-            length: int = 0, status: int = 0) -> None:
+            length: int = 0, status: int = 0, per: int = 0,
+            stride: int = 0) -> None:
     """One launch of encode_superblocks (K1) through the cached descriptor
     of instantiation kind, on the current stream of data's device (read on
     every call, so that a caller's torch.cuda.stream holds). rows ..
     status are device addresses (0: none): plane_off only in index mode,
     frame (cap bytes behind the header), length and status only in frame
-    mode."""
+    mode; per and stride (superblocks a frame, bytes a frame's row) only
+    for a batch of frames, where length holds n_sb / per lengths."""
     if data.data_ptr() % 16:  # the kernel copies 16-byte words
         data = data.clone()
     idx = data.get_device()
@@ -432,7 +475,7 @@ def _launch(data, kind: int, bpp: int, block_level: int, n_sb: int,
             desc[1], data.data_ptr(), n_sb, nb, nb_last, bpp, block_level,
             rows, row_w, rec, totals, bsizes, fsizes, plane_off, frame, cap,
             len(header), int.from_bytes(h[:8], "little"),
-            int.from_bytes(h[8:], "little"), length, status,
+            int.from_bytes(h[8:], "little"), length, status, per, stride,
             torch._C._cuda_getCurrentRawStream(idx)), "encode_superblocks")
 
 
@@ -514,6 +557,34 @@ def _frame(data, bpp: int, block_level: int, header: bytes, slot: int,
                     "encode_short")
                 launches_short += 1
     return frame, length
+
+
+def _frames(data, bpp: int, block_level: int, header: bytes,
+            n_frames: int):
+    """A batch of device frames in one launch of K1's batch instantiation:
+    data's rows are the superblocks of n_frames frames in order, frame f
+    goes to row f of a new (n_frames, frames_stride) tensor, zeroed past
+    its length by the kernel. K1's staging is one scratch buffer, as for
+    one frame. Returns (out, lengths (n_frames,) int64)."""
+    global launches, launches_frames
+    n_sb, sbytes = data.shape
+    per = n_sb // n_frames
+    nb = sbytes // (256 * bpp)
+    slot = record_bound(nb, bpp)
+    stride = frames_stride(per, nb, bpp, len(header))
+    dev = data.device
+    out = torch.empty((n_frames, stride), dtype=torch.uint8, device=dev)
+    lengths = torch.empty(n_frames, dtype=torch.int64, device=dev)
+    lay = scratch_layout(n_sb, slot, nb)
+    scratch = torch.empty(lay[5], dtype=torch.uint8, device=dev)
+    at = scratch.data_ptr()
+    _launch(data, _FRAMES, bpp, block_level, n_sb, nb, nb, slot, 4,
+            at + lay[0], at + lay[1], at + lay[2], at + lay[3], 0,
+            out.data_ptr(), len(header) + per * slot, header,
+            lengths.data_ptr(), at + lay[4], per, stride)
+    launches += 1
+    launches_frames += 1
+    return out, lengths
 
 
 def encode_superblocks(data, bpp: int, block_level: int):
@@ -666,3 +737,29 @@ def encode_column_frame(data, bpp: int, block_level: int, header: bytes,
     return _frame(data, bpp, block_level, header,
                   column_slot(nb if n_full else 0, r, bpp), column=(
                       n_full + 1, nb, r // (256 * bpp)))
+
+
+def encode_superblocks_frames(data, bpp: int, block_level: int,
+                              header: bytes, n_frames: int):
+    """A batch of device frames: data's rows are the superblocks of
+    n_frames frames of data.shape[0] / n_frames superblocks each, in order,
+    and frame f is every record of its superblocks [1, csize u24, stream]
+    back to back behind `header`. Returns (out (n_frames, stride) uint8,
+    lengths (n_frames,) int64 tensor): frame f is out[f, :lengths[f]],
+    zeros follow; stride is frames_stride. No device-to-host copy. One K1
+    launch of its batch instantiation (counted as K1 and in
+    launches_frames); with n_frames 1, row 0 is encode_superblocks_frame's
+    frame and zeros to a multiple of 16 bytes. A CPU tensor takes
+    encode_superblocks_frames_plain."""
+    if not (n_frames > 0 and data.dim() == 2
+            and data.shape[0] % n_frames == 0):
+        raise ValueError(f"encode_superblocks_frames: {tuple(data.shape)} "
+                         f"is no whole number of superblocks a frame for "
+                         f"{n_frames} frames")
+    if len(header) > 16:
+        raise ValueError("encode_superblocks_frames: header longer than 16")
+    if data.device.type == "cpu":
+        return encode_superblocks_frames_plain(data, bpp, block_level,
+                                               header, n_frames)
+    _check_args("encode_superblocks_frames", data, bpp, block_level)
+    return _frames(data, bpp, block_level, header, n_frames)

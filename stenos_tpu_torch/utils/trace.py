@@ -13,7 +13,8 @@ nothing, makes no CUDA event and opens no profiler range.
 A span records its name, its parent (the innermost open span of its
 thread, or `parent=` for work handed to another thread), its call (the id
 of its outermost span, shared by every span of one call), its host start
-and end (time.perf_counter_ns), and the bytes and superblocks it handled.
+and end (time.perf_counter_ns), and the bytes, superblocks and frames it
+handled.
 Given a CUDA device, it also records a pair of timing events on the
 device's current stream around the work it enqueues; nothing waits for
 them in the call: they are resolved when read (device_ms(), report()),
@@ -60,12 +61,13 @@ _NULL = _Null()
 
 class _Span:
     __slots__ = ("name", "id", "parent", "call", "thread", "t0", "t1",
-                 "nbytes", "superblocks", "events", "_device", "_queue",
-                 "_range", "_into")
+                 "nbytes", "superblocks", "frames", "events", "_device",
+                 "_queue", "_range", "_into")
 
-    def __init__(self, name, device, parent, nbytes, superblocks):
+    def __init__(self, name, device, parent, nbytes, superblocks, frames):
         self.name, self.parent = name, parent
         self.nbytes, self.superblocks = nbytes, superblocks
+        self.frames = frames
         self._device = device
         self.events = None
 
@@ -133,12 +135,13 @@ def _stack():
     return stack
 
 
-def span(name, device=None, parent=None, nbytes=0, superblocks=0):
+def span(name, device=None, parent=None, nbytes=0, superblocks=0,
+         frames=0):
     """A context manager for one span (see the module docstring); the
     shared null context while the recorder is off."""
     if not _on:
         return _NULL
-    return _Span(name, device, parent, nbytes, superblocks)
+    return _Span(name, device, parent, nbytes, superblocks, frames)
 
 
 def current():
@@ -151,7 +154,7 @@ def current():
 def records():
     """The recording's finished spans, in the order they started: each has
     name, id, parent (an id, None for an outermost span), call, thread,
-    t0 and t1 (ns), nbytes, superblocks, host_ms and device_ms()."""
+    t0 and t1 (ns), nbytes, superblocks, frames, host_ms and device_ms()."""
     return sorted(_records, key=lambda s: s.t0)
 
 
@@ -183,11 +186,11 @@ def report():
     """The recording's spans by name: {"spans": {name: {"calls", "host_ms"
     (total), "self_ms" (total, less the host time of child spans on the
     same thread), "max_ms", "device_ms" (total of the event pairs; None
-    for a name with none), "bytes", "superblocks"}}, "gaps_ms": {name:
-    [ms]}}. gaps_ms gives, for each name of outermost spans whose calls
-    launched work with events, the card's time from the last event of one
-    such call to the first event of the next, in order: how long the card
-    waited between the calls. Waits for the events it reads."""
+    for a name with none), "bytes", "superblocks", "frames"}}, "gaps_ms":
+    {name: [ms]}}. gaps_ms gives, for each name of outermost spans whose
+    calls launched work with events, the card's time from the last event of
+    one such call to the first event of the next, in order: how long the
+    card waited between the calls. Waits for the events it reads."""
     recs = records()
     byid = {s.id: s for s in recs}
     child_ns = {}
@@ -199,7 +202,7 @@ def report():
     for s in recs:
         r = spans.setdefault(s.name, {
             "calls": 0, "host_ms": 0.0, "self_ms": 0.0, "max_ms": 0.0,
-            "device_ms": None, "bytes": 0, "superblocks": 0})
+            "device_ms": None, "bytes": 0, "superblocks": 0, "frames": 0})
         r["calls"] += 1
         r["host_ms"] += s.host_ms
         r["self_ms"] += (s.t1 - s.t0 - child_ns.get(s.id, 0)) / 1e6
@@ -209,6 +212,7 @@ def report():
             r["device_ms"] = (r["device_ms"] or 0.0) + d
         r["bytes"] += s.nbytes
         r["superblocks"] += s.superblocks
+        r["frames"] += s.frames
     first, last = {}, {}  # call id: its first start event, its last end
     for s in recs:
         if s.events is not None:

@@ -192,7 +192,7 @@ def test_descriptor_holds_the_launch_plan(descriptors):
     for bpp in range(1, 1025):
         for nb in _plan_nbs(bpp):
             plan = launch_plan(bpp, nb)
-            for kind in (0, 1, 2):
+            for kind in (0, 1, 2, 3):
                 desc, addr = encode_kernel._descriptor(0, kind, bpp, nb)
                 assert addr == ctypes.addressof(desc)
                 assert desc.kind == kind and desc.lag == 528
